@@ -20,7 +20,10 @@ Phases, each of which must pass (any failure exits non-zero):
    bf16 weights with the self-kv contract, int8 weights, an int8 pool,
    and model scope over 2 layers with a bf16 and an int8 pool (the pools
    after the kernel's own append held to the plain append: pages within
-   1 int8 step, scales 1e-6 relative);
+   1 int8 step, scales 1e-6 relative); the prefill megakernel at one
+   full-width 7B layer over a T = 128 mixed step (a 64-token chunk, a
+   continuation chunk, decode rows, pad rows), bf16 or int8 weights over
+   a bf16 or int8 pool;
 3. hold the engine on the card against the same engine on the CPU
    (identical greedy tokens on a small f32 Llama: fp, then int8 and int4
    projections with an int8 pool), and 3 ``TrainStep``s of a small f32
@@ -41,17 +44,25 @@ Phases, each of which must pass (any failure exits non-zero):
    model scope): every request finishes, the decode megakernel launches
    32 times per burst iteration at layer scope and once at model scope
    (the ragged steps keep their kernels' counts), 2 bursts are traced;
-7. train a full-width llama_125m (``bench.py``'s configuration: 12
+7. phase ``[7b-fused]``: the same load through
+   ``prefill_megakernel="fused"`` three more times (bf16; int8
+   projections + int8 pool; bf16 in bursts of 8 at model scope): every
+   ragged step's layers go through the prefill megakernel (32 launches
+   per ragged step, no ragged-attention launch; the int8 pool's k/v
+   projections outside it: 64 dequant-matmul launches per ragged step;
+   one decode-megakernel launch per burst iteration), beside the unfused
+   runs of the same call;
+8. train a full-width llama_125m (``bench.py``'s configuration: 12
    layers, batch 8 x 1024, AdamW 1e-4, auto_cast O1 bf16) for 2 warm and
    10 timed ``TrainStep``s, the counts reset before the timed ones:
    every attention forward and backward went through the flash kernels
    (12 x steps each) and every update through fused AdamW (buckets x
    steps); the loss starts near ln 32000 and falls; 2 steps are traced;
-8. time every kernel at its main-path shapes beside its bound, its plain
+9. time every kernel at its main-path shapes beside its bound, its plain
    version and a PyTorch yardstick (SDPA, ``torch.matmul`` on the
    unquantized bf16 weight, ``torch.optim.AdamW(fused=True)``; for the
-   decode megakernel, which no single PyTorch call matches, the
-   per-token path's time for the same layer), and the int8 pool's
+   decode and prefill megakernels, which no single PyTorch call matches,
+   the unfused path's time for the same layer), and the int8 pool's
    segmented append (plain PyTorch) at the 7B step's shapes.
 
 It prints the card's name and power limit, the kernels' JSON line, and
@@ -629,6 +640,7 @@ def serve_7b(torch, model, tag, per_step, **knobs):
             if i in SERVE_SAMPLED else {}
         rids.append(eng.add_request(p, max_new_tokens=32, **kw))
     categories = {"ragged attention": lambda k: "ragged_kernel" in k,
+                  "prefill megakernel": lambda k: "prefill_megakernel" in k,
                   "dequant matmul": lambda k: "dequant_matmul" in k,
                   "matmuls": is_gemm}
     reset_launch_counts()
@@ -1148,12 +1160,12 @@ def mega_inputs(torch, quant_kv, n_layers, seed):
         torch.tensor(DECODE_KV, dtype=torch.int32, device="cuda")
 
 
-def mega_err(torch, got, want):
+def mega_err(torch, got, want, name="decode megakernel"):
     """(max |diff|, tolerance) of a bf16 megakernel output."""
     err = (got.float() - want.float()).abs().max().item()
     tol = MEGA_RTOL["bfloat16"] * max(1.0, want.float().abs().max().item())
     if not (bool(torch.isfinite(got.float()).all()) and err <= tol):
-        raise AssertionError(f"decode megakernel vs plain: |diff| {err} over "
+        raise AssertionError(f"{name} vs plain: |diff| {err} over "
                              f"tolerance {tol}")
     return err, tol
 
@@ -1332,6 +1344,8 @@ def serve_7b_burst(torch, model, tag, knobs):
                     f"{tag}: {len(traced)} traced bursts (burst lengths "
                     f"{[kinds[i] for i in traced]})",
                     {"decode megakernel": lambda k: "decode_megakernel" in k,
+                     "prefill megakernel":
+                         lambda k: "prefill_megakernel" in k,
                      "matmuls": is_gemm,
                      "dequant matmul": lambda k: "dequant_matmul" in k})
                 prof = None
@@ -1351,14 +1365,16 @@ def serve_7b_burst(torch, model, tag, knobs):
     ragged = len(kinds) - bursts
     scope = knobs["megakernel_scope"]
     quant = "kv_cache_dtype" in knobs
+    fused = knobs.get("prefill_megakernel") == "fused"
     want = {k: 0 for k in launches}
     want["decode_megakernel"] = (layers if scope == "layer" else 1) * iters
     attn = "ragged_paged_attention_int8" if quant else "ragged_paged_attention"
-    want[attn] = layers * ragged
+    want["prefill_megakernel" if fused else attn] = layers * ragged
     if quant:
-        # ragged steps: 7 projections per layer; layer-scope bursts: the k
-        # and v projections of the append that precedes each megakernel
-        want["int8_matmul"] = layers * (7 * ragged
+        # ragged steps: 7 projections per layer (fused: the k and v ones
+        # of the append outside the kernel); layer-scope bursts: the k and
+        # v projections of the append that precedes each megakernel
+        want["int8_matmul"] = layers * ((2 if fused else 7) * ragged
                                         + (2 * iters if scope == "layer"
                                            else 0))
     if launches != want or snap["burst_launches"] != bursts or not bursts:
@@ -1505,6 +1521,280 @@ def phase_time_megakernel(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# fused ragged prefill: the prefill megakernel
+# ---------------------------------------------------------------------------
+
+#: the 7B ragged step of the prefill megakernel's phases, (q_len, kv_len)
+#: per row at T = 128, q_block 8: a 64-token chunk of a 600-token prompt, a
+#: continuation chunk, decode rows, pad rows (16 tokens of slot padding)
+PREFILL_7B_ROWS = [(64, 600), (16, 250), (1, 49), (1, 233), (1, 441),
+                   (1, 632), (0, 0), (0, 0)]
+STEP_T = 128
+
+#: the prefill megakernel's variants held to the plain version at the 7B
+#: layer: (label, int8 weights, int8 pool)
+PREFILL_CASES = (("bf16 weights, bf16 pool", False, False),
+                 ("int8 weights, bf16 pool", True, False),
+                 ("bf16 weights, int8 pool", False, True),
+                 ("int8 weights, int8 pool", True, True))
+
+
+def prefill_inputs(torch, quant_kv, seed):
+    """Hidden states ``[1, 128, 4096]`` bf16, per-layer-shaped pools (bf16,
+    or int8 with per-(head, page) scales), the step's metadata and
+    prologue for :data:`PREFILL_7B_ROWS` as the engine packs them, and the
+    int8 pool's append plan (the engine's, made on the host)."""
+    from paddle_tpu_torch.kernels import prefill_megakernel as pmk
+    from paddle_tpu_torch.serving.engine import _append_plan
+    rng = np.random.RandomState(seed)
+    R = len(PREFILL_7B_ROWS)
+    q_starts = np.full(R, STEP_T, np.int32)
+    q_lens = np.zeros(R, np.int32)
+    kv_lens = np.zeros(R, np.int32)
+    tables = np.zeros((R, PAGES_PER_SEQ), np.int32)
+    positions = np.zeros(STEP_T, np.int32)
+    free = rng.permutation(np.arange(1, POOL_PAGES)).tolist()
+    cur = 0
+    for r, (ql, kl) in enumerate(PREFILL_7B_ROWS):
+        if ql == 0:
+            continue
+        q_starts[r], q_lens[r], kv_lens[r] = cur, ql, kl
+        n = -(-kl // PAGE)
+        tables[r, :n] = [free.pop() for _ in range(n)]
+        positions[cur:cur + ql] = np.arange(kl - ql, kl)
+        cur += -(-ql // 8) * 8
+    m = dict(zip(("positions", "tbl", "q_starts", "q_lens", "kv_lens"),
+                 (torch.from_numpy(a).to("cuda") for a in (
+                     positions, tables, q_starts, q_lens, kv_lens))))
+    m["pre"] = pmk.ragged_prologue(
+        m["positions"], m["tbl"], m["q_starts"], m["q_lens"], theta=10000.0,
+        head_dim=128, page_size=PAGE, max_pages=PAGES_PER_SEQ, q_block=8)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (32, POOL_PAGES, PAGE, 128)
+    k = torch.randn(*shape, device="cuda", generator=g)
+    v = torch.randn(*shape, device="cuda", generator=g)
+    if quant_kv:
+        kq, ks, vq, vs = quantize_pools(torch, k, v)
+        pool = [kq, vq, ks, vs]
+    else:
+        pool = [k.to(torch.bfloat16), v.to(torch.bfloat16), None, None]
+    del k, v
+    h = torch.randn(1, STEP_T, 4096, device="cuda", generator=g) \
+        .to(torch.bfloat16)
+    append = None
+    if quant_kv:
+        page, tok, sel = (torch.from_numpy(a).to("cuda") for a in _append_plan(
+            tables, q_starts, q_lens, kv_lens, PAGE, 64, STEP_T))
+        append = (page.long(), tok.long(), sel.bool())
+    return h, pool, m, append
+
+
+def phase_prefill_parity(torch):
+    """The prefill megakernel against its plain version at one full-width
+    7B layer over the T = 128 mixed step, every variant: h (all tokens),
+    the bf16 pools after the step (null page excluded), or the int8 pools
+    appended outside the kernel (pages in int8 steps, scales relative).
+    Returns the worst |diff| of h."""
+    from paddle_tpu_torch.kernels import prefill_megakernel as pmk
+    from paddle_tpu_torch.serving.engine import _chunk_append_fn
+    kw = dict(eps=1e-5, num_heads=32, q_block=8)
+    worst = 0.0
+    for label, quant_w, quant_kv in PREFILL_CASES:
+        fused = pmk.fuse_layer_weights(mega_layers(torch, 1, quant_w,
+                                                   seed=41)[0])
+        h, pool, m, append = prefill_inputs(torch, quant_kv, seed=42)
+        kw_kv = dict(quant_append_fn=_chunk_append_fn(append)) \
+            if quant_kv else {}
+        outs = []
+        for side in ("kernel", "plain"):
+            kp, vp, ks, vs = [x.clone() if x is not None else None
+                              for x in pool]
+            args = (fused, h, kp, vp, m["tbl"], m["pre"], m["q_starts"],
+                    m["q_lens"], m["kv_lens"])
+            if side == "kernel":
+                out = pmk.fused_prefill_layer(*args, k_scales=ks, v_scales=vs,
+                                              **kw, **kw_kv)
+                torch.cuda.synchronize()
+            else:
+                out = pmk._reference_prefill_layer(
+                    *args, num_kv_heads=32, head_dim=128, page_size=PAGE,
+                    k_scales=ks, v_scales=vs, **kw, **kw_kv)
+            outs.append(out)
+        (got, gk, gv, gks, gvs), (want, wk, wv, wks, wvs) = outs
+        err, tol = mega_err(torch, got, want, "prefill megakernel")
+        worst = max(worst, err)
+        if quant_kv:
+            steps = max((a[:, 1:].int() - b[:, 1:].int()).abs().max().item()
+                        for a, b in ((gk, wk), (gv, wv)))
+            rel = max(((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+                      for a, b in ((gks, wks), (gvs, wvs)))
+            if steps > 1 or rel > 1e-2:
+                raise AssertionError(f"prefill megakernel {label}: int8 pools "
+                                     f"{steps} steps, scales {rel} relative")
+            pool_note = (f"int8 pools {steps} step(s) (<= 1), scales "
+                         f"{rel:.2e} relative (<= 1e-2: one bf16 ulp of the "
+                         f"k/v amax)")
+        else:
+            kv = max(mega_err(torch, a[:, 1:], b[:, 1:],
+                              "prefill megakernel pools")[0]
+                     for a, b in ((gk, wk), (gv, wv)))
+            pool_note = f"bf16 pools {kv:.3e}"
+        log(f"[parity] prefill_megakernel 7B layer, {label}, T {STEP_T} "
+            f"(rows {PREFILL_7B_ROWS}): max|kernel - plain| h {err:.3e} (tol "
+            f"{tol:.3e}), {pool_note}")
+        del fused, pool, outs
+        torch.cuda.empty_cache()
+    return worst
+
+
+#: the fused engines of phase [7b-fused]: knobs, the launches per layer and
+#: ragged step (every other count 0), and the unfused run of this call
+#: they are compared with
+FUSED_RUNS = {
+    "bf16": (dict(prefill_megakernel="fused"), {"prefill_megakernel": 1},
+             "bf16"),
+    "w8_kv8": (dict(prefill_megakernel="fused",
+                    quantized_mode="weight_only_int8", kv_cache_dtype="int8"),
+               {"prefill_megakernel": 1, "int8_matmul": 2}, "w8_kv8"),
+}
+
+
+def phase_serve_7b_fused(torch, model, unfused, burst):
+    """Phase [7b-fused]: the 7B load through ``prefill_megakernel="fused"``
+    (bf16; int8 weights + int8 pool; bf16 in bursts of 8 at model scope),
+    beside the unfused runs of this call. Greedy tokens shared with them
+    are informational."""
+    runs = {}
+    greedy = [i for i in range(len(SERVE_LENS) + 1) if i not in SERVE_SAMPLED]
+
+    def share(a, b):
+        same = sum(x == y for i in greedy for x, y in zip(a[i], b[i]))
+        return same, sum(len(a[i]) for i in greedy)
+
+    for tag, (knobs, per_step, ref) in FUSED_RUNS.items():
+        run = serve_7b(torch, model, f"7b-fused {tag}", per_step, **knobs)
+        base = unfused[ref]
+        same, total = share(run["tokens"], base["tokens"])
+        log(f"[7b-fused {tag}] prefill {run['prefill_tok_s']:.1f} tokens/s, "
+            f"decode {run['decode_ms']:.2f} ms/step; the unfused {ref} run "
+            f"of this call: {base['prefill_tok_s']:.1f} tokens/s, "
+            f"{base['decode_ms']:.2f} ms/step; greedy tokens equal to it: "
+            f"{same} of {total} (informational)")
+        runs[tag] = run
+    run = serve_7b_burst(torch, model, "7b-fused bf16 burst model",
+                         dict(megakernel_scope="model",
+                              prefill_megakernel="fused"))
+    base = burst["bf16 model"]
+    same, total = share(run["tokens"], base["tokens"])
+    log(f"[7b-fused bf16 burst model] decode {run['decode_ms_per_token']:.3f} "
+        f"ms per generated token; the unfused burst run of this call: "
+        f"{base['decode_ms_per_token']:.3f}; greedy tokens equal to it: "
+        f"{same} of {total} (informational)")
+    runs["bf16 burst model"] = run
+    return runs
+
+
+def phase_time_prefill(torch):
+    """Row 11 at the 7B T = 128 mixed step: the kernel per layer (bf16
+    weights and pool; int8 weights and pool, whose whole layer call also
+    runs the k/v projections and the append outside the kernel) beside its
+    bound, its plain version and the unfused ragged layer on the same
+    inputs (cuBLAS or the dequant-matmul for the projections, the ragged
+    kernel, elementwise), and where a launch's time goes."""
+    from paddle_tpu_torch.kernels import prefill_megakernel as pmk
+    from paddle_tpu_torch.models.llama import llama2_7b_config
+    from paddle_tpu_torch.serving.engine import (_chunk_append_fn,
+                                                 _ragged_int8_layer)
+    from paddle_tpu_torch.serving.spec_decode import (_ragged_fp_layer,
+                                                      _ragged_packing)
+    cfg = llama2_7b_config()
+    kw = dict(eps=cfg.rms_norm_eps, num_heads=32, q_block=8)
+    D, Hd, F, dh = 4096, 4096, 11008, 128
+    rows = [r for r in PREFILL_7B_ROWS if r[0]]
+    live = sum(ql for ql, _ in rows)
+    seen = sum(kl - ql + i + 1 for ql, kl in rows for i in range(ql))
+    out = {}
+    for label, quant in (("bf16", False), ("int8", True)):
+        lyr = mega_layers(torch, 1, quant, seed=51)[0]
+        fused = pmk.fuse_layer_weights(lyr)
+        h, pool, m, append = prefill_inputs(torch, quant, seed=52)
+        kp, vp, ks, vs = pool
+        meta = (m["tbl"], m["pre"], m["q_starts"], m["q_lens"], m["kv_lens"])
+        kw_kv = dict(k_scales=ks, v_scales=vs,
+                     quant_append_fn=_chunk_append_fn(append)) if quant else {}
+        layer = lambda: pmk.fused_prefill_layer(     # noqa: E731
+            fused, h, kp, vp, *meta, **kw, **kw_kv)
+        kern = lambda: pmk._launch_cuda(             # noqa: E731
+            fused, h, kp, vp, ks, vs, *meta, **kw)
+        plain = lambda: pmk._reference_prefill_layer(  # noqa: E731
+            fused, h, kp, vp, *meta, num_kv_heads=32, head_dim=dh,
+            page_size=PAGE, **kw, **kw_kv)
+        err = mega_err(torch, layer()[0], plain()[0], "prefill megakernel")[0]
+        ms = time_ms(torch, kern, 30)
+        layer_ms = time_ms(torch, layer, 30)
+        plain_ms = time_ms(torch, plain, 5)
+        if quant:
+            unfused = lambda: _ragged_int8_layer(    # noqa: E731
+                lyr, h, kp, ks, vp, vs, m["positions"], m["tbl"],
+                m["q_starts"], m["q_lens"], m["kv_lens"], cfg, 8, append,
+                block_row=m["pre"].block_row)
+        else:
+            tok_row, lv = _ragged_packing(m["q_starts"], m["q_lens"], STEP_T)
+            unfused = lambda: _ragged_fp_layer(      # noqa: E731
+                lyr, h, kp, vp, m["positions"], m["tbl"], tok_row, lv,
+                m["q_starts"], m["q_lens"], m["kv_lens"], cfg, PAGE,
+                PAGES_PER_SEQ, 8, block_row=m["pre"].block_row)
+        unfused_ms = time_ms(torch, unfused, 30)
+        # the kernel's own work: every projection but, for an int8 pool,
+        # the k and v ones (run outside it); the live rows' pages read, the
+        # live tokens' fresh K/V written (fp pool), h read and written
+        cols = {"qkv": Hd if quant else 3 * Hd, "o": D, "gateup": 2 * F,
+                "down": D}
+        rows_in = {"qkv": D, "o": Hd, "gateup": D, "down": F}
+        params = sum(rows_in[k] * cols[k] for k in cols)
+        item = 1 if quant else 2
+        wbytes = params * item + (4 * sum(cols.values()) if quant else 0)
+        pages = sum(-(-kl // PAGE) for _, kl in rows)
+        kv_bytes = pages * 32 * PAGE * dh * 2 * item \
+            + (pages * 32 * 2 * 4 if quant else 0)
+        if not quant:
+            kv_bytes += live * 32 * dh * 2 * 2
+        io = STEP_T * D * 2 * 2
+        flops = 2 * live * params + 4 * seen * dh * 32
+        bms, by = bound_ms(wbytes + kv_bytes + io, flops)
+        stamps = torch.zeros(1 + len(pmk.PHASES), dtype=torch.int64,
+                             device="cuda")
+        phases = dict.fromkeys(pmk.PHASES, 0.0)
+        for _ in range(10):
+            pmk._launch_cuda(fused, h, kp, vp, ks, vs, *meta, stamps=stamps,
+                             **kw)
+            t = stamps.tolist()
+            for i, name in enumerate(pmk.PHASES):
+                phases[name] += (t[i + 1] - t[i]) / 1e6 / 10
+        out[label] = dict(ms=ms, layer_ms=layer_ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by,
+                          unfused_layer_ms=unfused_ms,
+                          max_abs_err=err, weight_bytes=wbytes,
+                          kv_bytes=kv_bytes, phase_ms=phases)
+        log(f"[time] prefill_megakernel 7B layer, {label} weights + {label} "
+            f"pool, T {STEP_T} mixed step ({live} live tokens): kernel "
+            f"{ms:.4f} ms, bound {bms:.4f} ms ({by}: weights "
+            f"{wbytes / 1e6:.2f} MB + K/V {kv_bytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.1f} GFLOP), plain {plain_ms:.4f} ms, the unfused "
+            f"ragged layer on the same inputs {unfused_ms:.4f} ms"
+            + (f", the whole fused layer call (k/v projections and append "
+               f"outside the kernel) {layer_ms:.4f} ms" if quant else "")
+            + f", max|diff| {err:.3e}")
+        log(f"[time] prefill_megakernel 7B layer, {label}: ms per phase, each "
+            f"to the end of the barrier after it (device clock, 10 launches, "
+            f"L2 warm): " + ", ".join(f"{k} {v:.4f}"
+                                      for k, v in phases.items()))
+        del lyr, fused, pool
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not (ROOT / "paddle_tpu_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -1527,12 +1817,14 @@ def main() -> int:
     flash_err = phase_flash_parity(torch)
     adamw_err = phase_adamw_parity(torch)
     mega_parity_err = phase_megakernel_parity(torch)
+    prefill_parity_err = phase_prefill_parity(torch)
     phase_engine_parity(torch)
     phase_train_parity(torch)
     model = build_7b(torch)
     bf16 = serve_7b(torch, model, "7b", {"ragged_paged_attention": 1})
     low = phase_serve_7b_lowbit(torch, model, bf16)
     burst = phase_serve_7b_burst(torch, model, {"bf16": bf16, **low})
+    fused = phase_serve_7b_fused(torch, model, {"bf16": bf16, **low}, burst)
     del model
     torch.cuda.empty_cache()
     train = phase_train_125m(torch)
@@ -1542,6 +1834,7 @@ def main() -> int:
     flash, yard = phase_time_flash(torch)
     adamw = phase_time_adamw(torch, train["n_params"])
     mega = phase_time_megakernel(torch)
+    prefill = phase_time_prefill(torch)
     dec, pre = times["decode"], times["prefill"]
     src = "paddle_tpu_torch/kernels/csrc/"
     shape = "llama_125m step (b 8, h 12, s 1024, d 64, bf16, causal)"
@@ -1636,6 +1929,27 @@ def main() -> int:
                           bursts=v["bursts"], iterations=v["iterations"],
                           profile=v["profile"])
                   for k, v in burst.items()}})
+    pm = prefill["bf16"]
+    kernels.append({
+        "name": "prefill_megakernel", "route": "cuda",
+        "source": src + "prefill_megakernel.cu",
+        "replaces": "paddle_tpu/kernels/prefill_megakernel.py:342",
+        "launches": fused["bf16"]["launches"]["prefill_megakernel"],
+        "max_abs_err": max(prefill_parity_err, pm["max_abs_err"],
+                           prefill["int8"]["max_abs_err"]),
+        "ms": pm["ms"], "plain_ms": pm["plain_ms"],
+        "bound_ms": pm["bound_ms"], "bound_by": pm["bound_by"],
+        "library_ms": None,
+        # no single PyTorch call computes a decoder layer: the unfused
+        # ragged layer's time on the same inputs stands beside it
+        "unfused_layer_ms": pm["unfused_layer_ms"],
+        "shape": f"one 7B layer, T = {STEP_T} mixed step {PREFILL_7B_ROWS}, "
+                 f"bf16",
+        "int8": prefill["int8"], "phase_ms": pm["phase_ms"],
+        "engines": {k: {key: v.get(key) for key in (
+            "steps", "ragged_steps", "prefill_tok_s", "decode_ms",
+            "decode_ms_per_token", "launches", "profile")}
+            for k, v in fused.items()}})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -401,15 +401,16 @@ _TABLES: OrderedDict = OrderedDict()
 _MAX_TABLES = 64
 
 
-def _grid(lib, device, key):
-    """Co-resident blocks of one kernel variant on ``device``."""
-    k = (device.index, key)
+def _grid(query, device, key):
+    """Co-resident blocks of one kernel variant on ``device``: ``query`` is
+    the library's ``<kernel>_grid`` function."""
+    k = (query.__name__, device.index, key)
     if k not in _GRIDS:
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
-            err = lib.decode_megakernel_grid(*key, ctypes.byref(out))
+            err = query(*key, ctypes.byref(out))
         if err != 0:
-            raise RuntimeError(f"decode_megakernel: occupancy query failed: "
+            raise RuntimeError(f"{query.__name__}: occupancy query failed: "
                                f"CUDA error {err}")
         _GRIDS[k] = out.value
     return _GRIDS[k]
@@ -440,13 +441,14 @@ def _pointer_table(ptrs, device):
     return t
 
 
-def _check(name, x, dtype, shape, device, align=16):
+def _check(name, x, dtype, shape, device, align=16,
+           kernel="decode_megakernel"):
     if not isinstance(x, torch.Tensor) or x.dtype != dtype or \
             x.device != device or tuple(x.shape) != tuple(shape) or \
             not x.is_contiguous() or x.data_ptr() % align:
         desc = (f"{x.dtype} {tuple(x.shape)} on {x.device}"
                 if isinstance(x, torch.Tensor) else type(x).__name__)
-        raise TypeError(f"decode_megakernel: {name} must be a contiguous, "
+        raise TypeError(f"{kernel}: {name} must be a contiguous, "
                         f"{align}-byte aligned {dtype} {tuple(shape)} on "
                         f"{device}, got {desc}")
     return x.data_ptr()
@@ -546,7 +548,7 @@ def _launch_cuda(lyrs, h, kps, vps, kss, vss, block_tables, kv_lens, *, eps,
     with_kv = self_kv or model_append
     layer_kv = self_kv and not model_append      # outputs k_cur/v_cur
     key = (_DTYPE_CODE[dtype], int(quant_w), int(quant_kv))
-    grid = _grid(lib, dev, key)
+    grid = _grid(lib.decode_megakernel_grid, dev, key)
     n_qkv = (H + (2 * Hkv if with_kv else 0)) * dh
     tiles = lambda *ns: sum(-(-n // tile_n) for n in ns)     # noqa: E731
     ks = (_k_split(tiles(H * dh, *((Hkv * dh,) * 2 if with_kv else ())), D,

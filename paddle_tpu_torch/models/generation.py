@@ -72,7 +72,8 @@ def _check_prefill_megakernel(v):
 
 define_flag("prefill_megakernel", str, "unfused",
             "the ragged prefill chain's launch shape: 'unfused' (the "
-            "default, the only mode this port serves so far) or 'fused'",
+            "default: the layer body op by op) or 'fused' (one prefill "
+            "megakernel launch per layer)",
             on_set=_check_prefill_megakernel)
 
 

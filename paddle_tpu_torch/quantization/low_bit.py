@@ -50,6 +50,17 @@ class QuantizedWeight:
         return (self.qdata.numel() * self.qdata.element_size()
                 + self.scale.numel() * self.scale.element_size())
 
+    @classmethod
+    def concat_columns(cls, ws):
+        """Int8 weights sharing their input dimension, side by side: the
+        payloads along axis 1 and the flattened scales, which is exact
+        because every scale belongs to one output column."""
+        if any(w.bits != 8 or w.rows != ws[0].rows for w in ws):
+            raise ValueError("concat_columns takes int8 weights of equal rows")
+        return cls(torch.cat([w.qdata for w in ws], 1),
+                   torch.cat([w.scale.reshape(-1) for w in ws]), 8,
+                   ws[0].rows)
+
     def dequantize(self, dtype=torch.float32):
         if self.bits == 8:
             w = self.qdata.to(dtype)

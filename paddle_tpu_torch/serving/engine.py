@@ -53,10 +53,19 @@ norm, the logits, the sample and the EOS/length gate. The host reads the
 device once, after the burst, and replays its tokens through the normal
 commit path. Prefill chunks and mixed steps stay ragged steps.
 
+Fused prefill: with ``prefill_megakernel="fused"`` every ragged step
+(prefill chunks, mixed steps and per-token decode steps alike) runs the
+prefill megakernel (``kernels/prefill_megakernel.py``): the projections
+fused column-wise at init (q|k|v, gate|up), the rope tables, pool slots
+and q block -> row map computed once per step, then one launch per layer
+at either ``megakernel_scope``. int4 (or mixed) weights have no fused
+geometry: the engine serves them unfused and reports
+``prefill_megakernel="unfused"``, as the reference does.
+
 Knobs of the reference that run other paths (speculative decoding,
-adapters, tensor parallelism, a host KV tier, fused prefill,
-persistence, tracing; int4 weights in bursts) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+adapters, tensor parallelism, a host KV tier, persistence, tracing; int4
+weights in bursts) raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -75,6 +84,11 @@ from ..kernels.decode_megakernel import (_rope_tables, fused_decode_layer,
                                          fused_decode_model, megakernel_mode)
 from ..kernels.paged_attention import (ragged_block_row,
                                        ragged_paged_attention)
+from ..kernels.prefill_megakernel import (fuse_layer_weights,
+                                          fused_prefill_layer,
+                                          fused_prefill_model,
+                                          prefill_megakernel_mode,
+                                          ragged_prologue)
 from ..models.generation import (_logits, _rms_norm, _rope, _wmat,
                                  extract_params, resolve_megakernel_scope,
                                  resolve_prefill_megakernel, sample_rows)
@@ -234,6 +248,17 @@ def _segmented_quant_append(Pp, Ps, chunk, page, tok_idx, sel):
     Ps[:, page] = new_s
 
 
+def _chunk_append_fn(append):
+    """An int8 pool's ``quant_append_fn`` for one ragged step: the
+    segmented append of K, then of V, over the step's plan ``append``
+    (:func:`_append_plan` on the device)."""
+    def quant_append(Kp, Ks, Vp, Vs, kt, vt):
+        _segmented_quant_append(Kp, Ks, kt, *append)
+        _segmented_quant_append(Vp, Vs, vt, *append)
+        return Kp, Ks, Vp, Vs
+    return quant_append
+
+
 def _ragged_int8_layer(lyr, h, Kp, Ks, Vp, Vs, positions, tbls, q_starts,
                        q_lens, kv_lens, cfg, q_block, append, block_row=None):
     """One decoder layer of the ragged forward over an int8 pool: qkv
@@ -332,8 +357,7 @@ class LLMEngine:
                         "persistence and the fleet stack")
         if tenants is not None or adapter_slots or adapter_store is not None:
             _not_ported("tenants/adapters", "tenancy")
-        if resolve_prefill_megakernel(prefill_megakernel) != "unfused":
-            _not_ported("prefill_megakernel='fused'", "prefill_megakernel")
+        prefill_megakernel = resolve_prefill_megakernel(prefill_megakernel)
         #: decode iterations per burst (1: the per-token path) and where
         #: the burst's layer loop lives ("layer" or "model")
         self.burst_tokens = int(burst_tokens)
@@ -344,6 +368,18 @@ class LLMEngine:
         # low-bit serving weights, quantized on the serving device; the
         # projections then run the dequant-matmul kernel
         self.params = quantize_params(self.params, quantized_mode)
+        #: the ragged step's launch shape; "fused" runs every ragged step
+        #: through the prefill megakernel over column-fused projections.
+        #: int4 and mixed layouts have no fused geometry: they stay
+        #: unfused, and the snapshot says so
+        self.prefill_megakernel = prefill_megakernel
+        self._fused_layers = None
+        if self.prefill_megakernel == "fused":
+            fused = [fuse_layer_weights(lyr) for lyr in self.params["layers"]]
+            if any(f is None for f in fused):
+                self.prefill_megakernel = "unfused"
+            else:
+                self._fused_layers = fused
         self.max_len = max_len
         self.page_size = page_size
         self.max_pages_per_seq = max_len // page_size
@@ -506,7 +542,10 @@ class LLMEngine:
         snap["megakernel_mode"] = megakernel_mode(
             self.params["layers"][0], self.device) \
             if self.burst_tokens > 1 else None
-        snap["prefill_megakernel"] = "unfused"
+        snap["prefill_megakernel"] = self.prefill_megakernel
+        snap["prefill_megakernel_mode"] = prefill_megakernel_mode(
+            self._fused_layers[0], self.device) \
+            if self._fused_layers is not None else None
         snap["kv_hbm_pages"] = self.pool.capacity
         snap["kv_hbm_bytes"] = self.pool.pool_bytes
         # the low-bit path's byte accounting (the reference's bench probe
@@ -759,9 +798,14 @@ class LLMEngine:
         (:func:`_append_plan` on the device), else None."""
         cfg, p = self.cfg, self.params
         T, qb = tokens.shape[0], self.q_block
+        h = p["embed"][tokens][None]                       # [1, T, hidden]
+        if self._fused_layers is not None:
+            h = self._fused_forward(h, positions, tbls, q_starts, q_lens,
+                                    kv_lens, append)
+            return _logits(p, _rms_norm(h, p["norm"], cfg.rms_norm_eps)
+                           [0, sample_idx], cfg)
         # the q block -> row map, derived once per step for every layer
         block_row = ragged_block_row(q_starts, T // qb, qb)
-        h = p["embed"][tokens][None]                       # [1, T, hidden]
         if self.pool.quantized:
             for lyr, (Kp, Vp), (Ks, Vs) in zip(p["layers"], self.pool.kv,
                                                self.pool.kv_scales):
@@ -778,6 +822,38 @@ class LLMEngine:
                                      block_row=block_row)
         h = _rms_norm(h, p["norm"], cfg.rms_norm_eps)
         return _logits(p, h[0, sample_idx], cfg)
+
+    def _fused_forward(self, h, positions, tbls, q_starts, q_lens, kv_lens,
+                       append):
+        """The decoder layers of one ragged step through the prefill
+        megakernel: the step's prologue (rope tables, pool slots, q block
+        -> row map) once, then the fused layer per layer (model scope:
+        :func:`fused_prefill_model`, the same launches). An int8 pool
+        appends through the host-planned segmented append first."""
+        cfg, pool = self.cfg, self.pool
+        pre = ragged_prologue(positions, tbls, q_starts, q_lens,
+                              theta=cfg.rope_theta, head_dim=cfg.head_dim,
+                              page_size=self.page_size,
+                              max_pages=self.max_pages_per_seq,
+                              q_block=self.q_block)
+        kw = dict(eps=cfg.rms_norm_eps, num_heads=cfg.num_attention_heads,
+                  q_block=self.q_block)
+        if pool.quantized:
+            kw["quant_append_fn"] = _chunk_append_fn(append)
+        meta = (tbls, pre, q_starts, q_lens, kv_lens)
+        if self.megakernel_scope == "model":
+            scales = {}
+            if pool.quantized:
+                scales = dict(k_scales=[a for a, _ in pool.kv_scales],
+                              v_scales=[b for _, b in pool.kv_scales])
+            return fused_prefill_model(
+                self._fused_layers, h, [K for K, _ in pool.kv],
+                [V for _, V in pool.kv], *meta, **scales, **kw)[0]
+        for i, (lyr, (Kp, Vp)) in enumerate(zip(self._fused_layers, pool.kv)):
+            Ks, Vs = pool.kv_scales[i] if pool.quantized else (None, None)
+            h = fused_prefill_layer(lyr, h, Kp, Vp, *meta, k_scales=Ks,
+                                    v_scales=Vs, **kw)[0]
+        return h
 
     # ------------------------------------------------------------------
     # the burst

@@ -738,3 +738,261 @@ def test_burst_engine_on_the_card_matches_the_cpu(cuda, knobs, scope):
         assert eng.pool.check_invariants()
         tokens[dev] = [outs[r].token_ids for r in rids]
     assert tokens["cuda"] == tokens["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# fused ragged prefill: the prefill megakernel (one launch per layer)
+# ---------------------------------------------------------------------------
+
+#: (q_len, kv_len) per row of a ragged step: a first chunk, a decode row, a
+#: continuation chunk, a decode row at position 0, a pad row
+PREFILL_ROWS = [(16, 16), (1, 37), (13, 70), (1, 1), (0, 0)]
+
+#: (H, Hkv, dh): GQA 4/1, MHA with a narrow head, a 7B head, GQA 8/1
+#: (64 query rows per q block and kv head: 8 query groups)
+PREFILL_HEADS = [(8, 2, 64), (4, 4, 32), (4, 4, 128), (8, 1, 64)]
+
+
+def _prefill_step(dev, rows, *, P, pps, ps=16, qb=8, seed=0):
+    """The step's metadata, packed as the engine packs it (rows at q_block
+    multiples, pad rows last at q_start = T, one spare block of slot
+    padding), positions and block tables on distinct random pages."""
+    g = torch.Generator().manual_seed(seed)
+    R = len(rows)
+    T = sum(-(-ql // qb) * qb for ql, _ in rows) + qb
+    q_starts = torch.full((R,), T, dtype=torch.int32)
+    q_lens = torch.zeros(R, dtype=torch.int32)
+    kv_lens = torch.zeros(R, dtype=torch.int32)
+    tbl = torch.zeros((R, pps), dtype=torch.int32)
+    positions = torch.zeros(T, dtype=torch.int32)
+    free = (torch.randperm(P - 1, generator=g) + 1).tolist()
+    cur = 0
+    for r, (ql, kl) in enumerate(rows):
+        if ql == 0:
+            continue
+        q_starts[r], q_lens[r], kv_lens[r] = cur, ql, kl
+        tbl[r, :-(-kl // ps)] = torch.tensor(
+            [free.pop() for _ in range(-(-kl // ps))], dtype=torch.int32)
+        positions[cur:cur + ql] = torch.arange(kl - ql, kl)
+        cur += -(-ql // qb) * qb
+    return [x.to(dev) for x in (positions, tbl, q_starts, q_lens, kv_lens)]
+
+
+def _prefill_fixture(dev, dtype, heads, *, quant_w=False, quant_kv=False,
+                     layers=1, D=256, F=384, rows=PREFILL_ROWS, seed=0):
+    """Fused layer(s), hidden states, pools and one ragged step; with an
+    int8 pool, both sides' ``quant_append_fn`` (the engine's segmented
+    append over the step's host plan)."""
+    from paddle_tpu_torch.kernels import prefill_megakernel as pmk
+    from paddle_tpu_torch.serving.engine import (_append_plan,
+                                                 _chunk_append_fn)
+    H, Hkv, dh = heads
+    pages = [-(-kl // 16) for _, kl in rows]
+    P, pps = max(48, sum(pages) + 1), max(6, max(pages))
+    lyrs, _, pools, _, _, _ = _mega_fixture(
+        dev, dtype, heads, quant_w=quant_w, quant_kv=quant_kv, layers=layers,
+        D=D, F=F, P=P, seed=seed)
+    fused = [pmk.fuse_layer_weights(lyr) for lyr in lyrs]
+    positions, tbl, q_starts, q_lens, kv_lens = _prefill_step(
+        dev, rows, P=P, pps=pps)
+    T = positions.shape[0]
+    pre = pmk.ragged_prologue(positions, tbl, q_starts, q_lens,
+                              theta=10000.0, head_dim=dh, page_size=16,
+                              max_pages=tbl.shape[1], q_block=8)
+    g = torch.Generator().manual_seed(seed + 1)
+    h = torch.randn(1, T, D, generator=g).to(dev, dtype)
+    kw = dict(eps=1e-6, num_heads=H, q_block=8)
+    if quant_kv:
+        plan = [torch.from_numpy(a).to(dev) for a in _append_plan(
+            *(x.cpu().numpy() for x in (tbl, q_starts, q_lens, kv_lens)),
+            16, 64, T)]
+        kw["quant_append_fn"] = _chunk_append_fn(
+            (plan[0].long(), plan[1].long(), plan[2].bool()))
+    return fused, h, pools, (tbl, pre, q_starts, q_lens, kv_lens), kw
+
+
+def _clone_pools(pools):
+    return [[x.clone() if x is not None else None for x in p] for p in pools]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("heads", PREFILL_HEADS,
+                         ids=lambda h: f"h{h[0]}_kv{h[1]}_d{h[2]}")
+@pytest.mark.parametrize("contract", ["fp", "int8_w", "int8_kv",
+                                      "int8_w_int8_kv"])
+def test_prefill_megakernel_matches_plain_version(cuda, contract, heads,
+                                                  dtype):
+    """One layer over the mixed step: h (every token: dead ones attend to
+    nothing on both sides) and the pools after the step (the null page
+    excluded: the plain version writes dead tokens there). An int8 pool
+    is appended to outside the kernel on both sides: its pages and scales
+    then differ only where the k/v projections round apart."""
+    from paddle_tpu_torch.kernels import prefill_megakernel as pmk
+    quant_w = contract.startswith("int8_w")
+    quant_kv = contract.endswith("int8_kv")
+    fused, h, pools, meta, kw = _prefill_fixture(
+        cuda, dtype, heads, quant_w=quant_w, quant_kv=quant_kv)
+    runs = []
+    for side in ("kernel", "plain"):
+        kp, vp, ks, vs = _clone_pools(pools)[0]
+        reset_launch_counts()
+        if side == "kernel":
+            out = pmk.fused_prefill_layer(fused[0], h, kp, vp, *meta,
+                                          k_scales=ks, v_scales=vs, **kw)
+            torch.cuda.synchronize()
+            assert LAUNCHES["prefill_megakernel"] == 1
+            assert sum(LAUNCHES.values()) == 1 + (2 * quant_w * quant_kv)
+        else:
+            out = pmk._reference_prefill_layer(
+                fused[0], h, kp, vp, *meta, num_kv_heads=heads[1],
+                head_dim=heads[2], page_size=16, k_scales=ks, v_scales=vs,
+                **kw)
+            assert sum(LAUNCHES.values()) == 0
+        runs.append(out)
+    (got, *gp), (want, *wp) = runs
+    assert got.dtype == dtype and got.shape == h.shape
+    _close(got, want, dtype)
+    if quant_kv:
+        for a, b in zip(gp[:2], wp[:2]):
+            assert (a[:, 1:].int() - b[:, 1:].int()).abs().max() <= 1
+        for a, b in zip(gp[2:], wp[2:]):
+            _close(a, b, dtype)
+    else:
+        for a, b in zip(gp[:2], wp[:2]):
+            _close(a[:, 1:], b[:, 1:], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_w", [False, True], ids=["bf16", "int8_w"])
+def test_prefill_megakernel_7b_layer_matches_plain_version(cuda, quant_w):
+    """One full-width Llama-2-7B layer (D 4096, 32 heads of 128, F 11008)
+    over a 128-token step: a 64-token chunk of a 600-token prompt, a
+    continuation chunk, decode rows and a pad row."""
+    from paddle_tpu_torch.kernels import prefill_megakernel as pmk
+    rows = [(64, 600), (24, 300), (1, 49), (1, 632), (1, 1), (0, 0)]
+    fused, h, pools, meta, kw = _prefill_fixture(
+        cuda, torch.bfloat16, (32, 32, 128), quant_w=quant_w, D=4096,
+        F=11008, rows=rows, seed=3)
+    kp, vp, _, _ = pools[0]
+    reset_launch_counts()
+    got = pmk.fused_prefill_layer(fused[0], h, kp.clone(), vp.clone(), *meta,
+                                  **kw)[0]
+    torch.cuda.synchronize()
+    assert LAUNCHES["prefill_megakernel"] == 1
+    want = pmk._reference_prefill_layer(
+        fused[0], h, kp.clone(), vp.clone(), *meta, num_kv_heads=32,
+        head_dim=128, page_size=16, **kw)[0]
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+def test_prefill_megakernel_model_scope_matches_plain_version(cuda, pool,
+                                                              dtype):
+    """Three layers through ``fused_prefill_model``: one launch per layer;
+    h and every layer's pools against the plain layer loop."""
+    from paddle_tpu_torch.kernels import prefill_megakernel as pmk
+    quant = pool == "int8"
+    fused, h, pools, meta, kw = _prefill_fixture(
+        cuda, dtype, (8, 2, 64), quant_kv=quant, layers=3)
+    runs = []
+    for side in ("kernel", "plain"):
+        ps_ = _clone_pools(pools)
+        args = ([p[0] for p in ps_], [p[1] for p in ps_])
+        sc = dict(k_scales=[p[2] for p in ps_],
+                  v_scales=[p[3] for p in ps_]) if quant else {}
+        reset_launch_counts()
+        if side == "kernel":
+            out = pmk.fused_prefill_model(fused, h, *args, *meta, **sc,
+                                          **kw)
+            torch.cuda.synchronize()
+            assert LAUNCHES["prefill_megakernel"] == 3
+        else:
+            hh = h
+            for i, lyr in enumerate(fused):
+                hh = pmk._reference_prefill_layer(
+                    lyr, hh, args[0][i], args[1][i], *meta, num_kv_heads=2,
+                    head_dim=64, page_size=16,
+                    k_scales=sc["k_scales"][i] if quant else None,
+                    v_scales=sc["v_scales"][i] if quant else None, **kw)[0]
+            out = (hh, *args)
+        runs.append(out)
+    (got, gk, gv), (want, wk, wv) = runs[0][:3], runs[1]
+    _close(got, want, dtype)
+    for a_list, b_list in ((gk, wk), (gv, wv)):
+        for a, b in zip(a_list, b_list):
+            if quant:
+                assert (a[:, 1:].int() - b[:, 1:].int()).abs().max() <= 1
+            else:
+                _close(a[:, 1:], b[:, 1:], dtype)
+
+
+@pytest.mark.cuda
+def test_prefill_megakernel_rejects_what_it_does_not_take(cuda):
+    from paddle_tpu_torch.kernels import prefill_megakernel as pmk
+    from paddle_tpu_torch.quantization.low_bit import quantize_weight
+    fused, h, pools, meta, kw = _prefill_fixture(cuda, torch.float32,
+                                                 (4, 4, 32))
+    kp, vp, _, _ = pools[0]
+    tbl, pre, q_starts, q_lens, kv_lens = meta
+    reset_launch_counts()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pmk.fused_prefill_layer(fused[0], h.half(), kp, vp, *meta, **kw)
+    with pytest.raises(TypeError, match="block_tables"):
+        pmk.fused_prefill_layer(fused[0], h, kp, vp, tbl.long(),
+                                *meta[1:], **kw)
+    with pytest.raises(TypeError, match="k_pages"):
+        pmk.fused_prefill_layer(fused[0], h, kp.to(torch.bfloat16), vp,
+                                *meta, **kw)
+    with pytest.raises(TypeError, match="slot"):
+        pmk.fused_prefill_layer(fused[0], h, kp, vp, tbl,
+                                pre._replace(slot=pre.slot.long()),
+                                *meta[2:], **kw)
+    int4 = dict(fused[0])
+    w4 = quantize_weight(fused[0]["o"].cpu(), "weight_only_int4")
+    w4.qdata, w4.scale = w4.qdata.to(cuda), w4.scale.to(cuda)
+    int4["o"] = w4
+    with pytest.raises(NotImplementedError, match="int4"):
+        pmk.fused_prefill_layer(int4, h, kp, vp, *meta, **kw)
+    assert LAUNCHES["prefill_megakernel"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scope", ["layer", "model"])
+@pytest.mark.parametrize("knobs", [
+    {}, dict(quantized_mode="weight_only_int8", kv_cache_dtype="int8")],
+    ids=["fp", "w8_kv8"])
+def test_fused_engine_on_the_card_matches_the_cpu(cuda, knobs, scope):
+    """Greedy tokens of a small f32 Llama through
+    ``prefill_megakernel="fused"``: the card (every ragged step's layers
+    through the prefill megakernel, no ragged-attention launch) equals
+    the CPU (the plain body)."""
+    cfg = pt.llama_tiny_config(num_hidden_layers=2, num_key_value_heads=2)
+    model = pt.LlamaForCausalLM(cfg, device="cpu",
+                                generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).tolist()
+               for n in (3, 17, 40, 9)]
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        eng = pt.LLMEngine(model, max_len=96, page_size=16, max_num_seqs=4,
+                           chunk_size=16, device=dev, megakernel_scope=scope,
+                           prefill_megakernel="fused", **knobs)
+        rids = [eng.add_request(p, max_new_tokens=9) for p in prompts]
+        reset_launch_counts()
+        outs = eng.run(max_steps=200)
+        snap = eng.metrics_snapshot()
+        steps = snap["decode_steps"]
+        want = cfg.num_hidden_layers * steps if dev == "cuda" else 0
+        assert LAUNCHES["prefill_megakernel"] == want
+        assert LAUNCHES["ragged_paged_attention"] == 0
+        assert LAUNCHES["ragged_paged_attention_int8"] == 0
+        assert snap["prefill_megakernel_mode"] == ("cuda" if dev == "cuda"
+                                                   else "plain")
+        assert eng.pool.check_invariants()
+        tokens[dev] = [outs[r].token_ids for r in rids]
+    assert tokens["cuda"] == tokens["cpu"]

@@ -203,6 +203,7 @@ def test_build_names_libraries_by_source_hash():
     assert _build.kernel_sources() == ["decode_megakernel",
                                        "flash_attention", "fused_adamw",
                                        "int8_matmul",
+                                       "prefill_megakernel",
                                        "ragged_paged_attention"]
     path = _build.library_path("ragged_paged_attention")
     assert path.parent == _build.BUILD_DIR

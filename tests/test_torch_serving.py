@@ -220,7 +220,6 @@ def test_engine_on_cpu_counts_no_kernel_launches(models):
     (dict(burst_tokens=2, megakernel_scope="model",
           quantized_mode="weight_only_int4", kv_cache_dtype="int8"),
      "int4 weights in decode bursts"),
-    (dict(prefill_megakernel="fused"), "prefill_megakernel"),
 ])
 def test_other_paths_raise_naming_their_roadmap_item(models, knob, item):
     with pytest.raises(NotImplementedError, match=item):
