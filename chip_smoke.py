@@ -6,7 +6,11 @@
 Phases, each of which must pass (any failure exits non-zero):
 
 1. build every CUDA kernel of the port from ``paddle_tpu_torch/kernels/
-   csrc`` with nvcc for sm_90a (one nvcc per source, started together);
+   csrc`` with nvcc for sm_90a (one nvcc per source, started together)
+   and report each flash kernel instantiation's registers, spills
+   (``-Xptxas -v``), dynamic shared memory and tensor-core instructions
+   (HMMA/HGMMA in ``cuobjdump -sass``): a bf16 forward, dq or dk/dv
+   kernel without them, or with spills, fails the run;
 2. hold each kernel against its plain PyTorch version on the card:
    ragged paged attention (f32 and bf16, a mixed GQA batch: decode rows,
    multi-page prefill chunks, padding rows, a dead tail) over fp pools
@@ -14,7 +18,9 @@ Phases, each of which must pass (any failure exits non-zero):
    (int8 and int4; bf16 at the 7B projection shapes, bf16 and f32 at an
    odd-K ragged-N shape); flash attention forward and backward (f32 and
    bf16 at the llama_125m, llama_1b GQA and a d=128 ragged-tail
-   geometry); fused AdamW (an odd-length bucket, f32 and bf16 params,
+   geometry, a second backward bitwise equal to the first; the bf16 GQA
+   dk/dv group sum bitwise equal to its plain version); fused AdamW (an
+   odd-length bucket, f32 and bf16 params,
    both weight-decay modes, t = 1 and 7); phase ``[rms]``: the rms_norm
    forward (y, rstd) and backward (dx, dw) kernels at f32, bf16 and bf16
    x with an f32 weight, at the llama_1b [2048, 2048], llama_125m
@@ -69,10 +75,12 @@ Phases, each of which must pass (any failure exits non-zero):
    TinyLlama-1.1B shape, 22 layers, GQA 32/4, tied embeddings,
    ``loss_chunk_size=512``, ``remat=True``), batch 1 x 2048: per step
    rms_norm 89 forward launches (2 per layer, again in the recompute,
-   and the final norm) and 45 backward, flash forward 44, dq and dk/dv
-   22 each;
+   and the final norm) and 45 backward, flash forward 44, dq, dk/dv
+   and the dk/dv group sum 22 each;
 10. time every kernel at its main-path shapes beside its bound, its
-    plain version and a PyTorch yardstick (SDPA, ``torch.matmul`` on the
+    plain version and a PyTorch yardstick (SDPA forward and backward,
+    for flash at the llama_125m and llama_1b step shapes with achieved
+    TFLOP/s, ``enable_gqa`` at 1b; ``torch.matmul`` on the
     unquantized bf16 weight, ``torch.optim.AdamW(fused=True)``,
     ``F.rms_norm``; for the decode and prefill megakernels, which no
     single PyTorch call matches, the unfused path's time for the same
@@ -86,6 +94,7 @@ from the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -327,6 +336,73 @@ def phase_build():
     for n in names:
         _build.load(n)
     log(f"[build] {names} built for sm_90a in {secs:.2f} s (set-up)")
+    report_flash_build(_build)
+
+
+#: a flash kernel's mangled name: template and head dim
+FLASH_SYMBOL = re.compile(r"(flash_(?:fwd|bwd|dkv)\w*?kernel)ILi(\d+)E")
+#: the CUDA-core kernels of the f32 path; every other flash kernel is bf16
+FLASH_F32 = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+
+
+def report_flash_build(_build):
+    """Per flash kernel instantiation: registers and spills from nvcc's
+    ``-Xptxas -v`` report, dynamic shared memory per launch, and the
+    tensor-core instructions (HMMA/HGMMA) in its SASS (``cuobjdump``).
+    Raises if a bf16 flash kernel has no tensor-core instruction or
+    spills."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    ptx, entry = {}, None
+    for line in _build.ptxas_log("flash_attention").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            ptx[entry] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            ptx[entry]["spills"] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            ptx[entry]["registers"] = int(m.group(1))
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    mma, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = m.group(1)
+            mma[fn] = 0
+        elif fn and re.search(r"\bH(G)?MMA\b", line):
+            mma[fn] += 1
+    lib = tfa._library()
+    kinds = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
+    rows = []
+    for name in sorted(set(ptx) | set(mma)):
+        m = FLASH_SYMBOL.search(name)
+        if not m:
+            continue
+        kernel, d = m.group(1), int(m.group(2))
+        dtype = "f32" if kernel in FLASH_F32 else "bf16"
+        kind = next((v for k, v in kinds.items() if kernel.startswith(k)),
+                    None)
+        smem = lib.flash_attention_smem_bytes(kind, int(dtype == "bf16"),
+                                              d) if kind is not None else 0
+        info = ptx.get(name, {})
+        rows.append((kernel, dtype, d, info.get("registers"),
+                     info.get("spills"), smem, mma.get(name, 0)))
+        log(f"[build] {kernel}<{dtype}, d {d}>: {info.get('registers')} "
+            f"registers, spills (store, load bytes) {info.get('spills')}, "
+            f"{smem} B dynamic shared memory, {mma.get(name, 0)} HMMA/HGMMA "
+            f"instructions")
+    # the bf16 forward, dq and dk/dv kernels at d 64 and 128 (the group
+    # sum adds, it multiplies nothing)
+    bf16 = [r for r in rows if r[1] == "bf16" and r[5]]
+    if len(bf16) != 6 or any(r[6] == 0 or r[4] != (0, 0) for r in bf16):
+        raise AssertionError(f"bf16 flash kernels without tensor-core "
+                             f"instructions or with spills: {bf16}")
 
 
 def phase_kernel_parity(torch):
@@ -497,22 +573,31 @@ def _flash_case(torch, b, hq, hkv, sq, sk, d, dtype, seed):
 
 def phase_flash_parity(torch):
     """Flash forward and backward against the plain version, f32 and
-    bf16, at three geometries. Returns the worst |diff| per kernel."""
+    bf16, at three geometries; a second backward launch bitwise equal to
+    the first; the bf16 GQA group sum bitwise equal to its plain version.
+    Returns the worst |diff| per kernel."""
     from paddle_tpu_torch.kernels import flash_attention as tfa
     geos = {"125m (b2 h12/12 s1024 d64)": (2, 12, 12, 1024, 1024, 64),
             "1b GQA (b1 h32/4 s2048 d64)": (1, 32, 4, 2048, 2048, 64),
             "d128 tail (b1 h8/2 sq192 sk320)": (1, 8, 2, 192, 320, 128)}
     worst = {"flash_attention_fwd": 0.0, "flash_attention_bwd_dq": 0.0,
-             "flash_attention_bwd_dkv": 0.0}
+             "flash_attention_bwd_dkv": 0.0,
+             "flash_attention_bwd_dkv_sum": 0.0}
     for label, geo in geos.items():
         for name, dtype in (("float32", torch.float32),
                             ("bfloat16", torch.bfloat16)):
             q, k, v, do = _flash_case(torch, *geo, dtype, seed=7)
             q, k, v = (x.requires_grad_() for x in (q, k, v))
-            out, _ = tfa.FlashAttention.apply(q, k, v, True,
-                                              geo[-1] ** -0.5)
+            scale = geo[-1] ** -0.5
+            out, lse = tfa.FlashAttention.apply(q, k, v, True, scale)
             got = (out, *torch.autograd.grad(out, (q, k, v), do))
+            again = tfa.flash_attention_bwd(q.detach(), k.detach(),
+                                            v.detach(), out.detach(), lse,
+                                            do, True, scale)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got[1:], again)):
+                raise AssertionError(f"flash {label} {name}: two backward "
+                                     f"launches differ")
             ref, _ = tfa.flash_attention_reference(q, k, v, True)
             want = (ref, *torch.autograd.grad(ref, (q, k, v), do))
             errs = []
@@ -533,7 +618,20 @@ def phase_flash_parity(torch):
             log(f"[parity] flash {label} {name} causal: max|kernel - plain| "
                 f"out {errs[0]:.3e}, dq {errs[1]:.3e}, dk {errs[2]:.3e}, "
                 f"dv {errs[3]:.3e} (<= {FLASH_RTOL[name]:g} x max(1, "
-                f"max|plain|))")
+                f"max|plain|)); a second backward bitwise equal")
+    # the group sum alone at the llama_1b shape: in head order, as the
+    # plain version adds, so bitwise
+    g = torch.Generator(device="cuda").manual_seed(8)
+    part = torch.randn(2, 1, 32, 2048, 64, device="cuda", generator=g)
+    k, v = (torch.empty(1, 4, 2048, 64, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    got = tfa.flash_attention_bwd_dkv_sum(part, k, v)
+    want = tfa.flash_attention_bwd_dkv_sum_reference(part, k, v)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("flash dk/dv group sum differs from its plain "
+                             "version")
+    log("[parity] flash dk/dv group sum (b1 h32/4 s2048 d64): bitwise equal "
+        "to the plain in-order sum")
     return worst
 
 
@@ -919,21 +1017,24 @@ def phase_serve_7b_lowbit(torch, model, bf16):
     return runs
 
 
-def expected_train_launches(cfg, steps, buckets, micro=1):
+def expected_train_launches(cfg, steps, buckets, micro=1, bf16=False):
     """Launches per kernel over ``steps`` TrainSteps of a Llama with L
     layers, each step ``micro`` forward and backward passes. Forward: 2
     norms per layer and the final one, one attention per layer; under
     remat every layer runs its forward again in backward (2 norms, 1
-    attention). Backward: each norm and attention once. One fused AdamW
-    launch per bucket and step."""
+    attention). Backward: each norm and attention once, and with GQA in
+    bf16 one dk/dv group sum per attention. One fused AdamW launch per
+    bucket and step."""
     L = cfg.num_hidden_layers
     replay = 2 if cfg.remat else 1
     passes = steps * micro
+    grouped = bf16 and cfg.num_key_value_heads != cfg.num_attention_heads
     return {"rms_norm_fwd": passes * (2 * L * replay + 1),
             "rms_norm_bwd": passes * (2 * L + 1),
             "flash_attention_fwd": passes * L * replay,
             "flash_attention_bwd_dq": passes * L,
             "flash_attention_bwd_dkv": passes * L,
+            "flash_attention_bwd_dkv_sum": passes * L if grouped else 0,
             "fused_adamw": steps * buckets}
 
 
@@ -999,7 +1100,7 @@ def train_run(torch, tag, cfg, batch, seq):
          "fused AdamW": lambda k: "fused_adamw_kernel" in k,
          "rms_norm": is_rms})
     losses = [x.item() for x in losses]
-    want = expected_train_launches(cfg, TIMED_STEPS, buckets)
+    want = expected_train_launches(cfg, TIMED_STEPS, buckets, bf16=True)
     for k, n in want.items():
         if launches[k] != n:
             raise AssertionError(f"[{tag}] {k}: {launches[k]} launches over "
@@ -1049,14 +1150,44 @@ def bound_ms(nbytes, flops, peak=BF16_FLOPS):
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_time_flash(torch):
-    """The flash kernels at the llama_125m step shape (b 8, h 12, s 1024,
-    d 64, bf16, causal), beside their bounds, the plain version and
-    ``F.scaled_dot_product_attention``."""
+#: the flash kernels' main-path shapes: (b, hq, hkv, s, d), bf16, causal
+FLASH_TIME_SHAPES = {"125m": (TRAIN_BATCH, 12, 12, TRAIN_SEQ, 64),
+                     "1b": (*TRAIN_1B_BATCH[:1], 32, 4, TRAIN_1B_BATCH[1], 64)}
+
+
+def sdpa_calls(torch, q, k, v, do):
+    """``F.scaled_dot_product_attention`` forward and backward on the
+    same tensors (``enable_gqa`` when hq != hkv; where the installed
+    torch lacks it, on K/V expanded by ``repeat_interleave`` beforehand,
+    outside the timed call)."""
     import torch.nn.functional as F
+    group = q.shape[1] // k.shape[1]
+    kw = {}
+    if group > 1:
+        try:
+            F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           enable_gqa=True)
+            kw = dict(enable_gqa=True)
+        except TypeError:
+            log("[time]   this torch's SDPA lacks enable_gqa: K/V expanded "
+                "by repeat_interleave before the timed calls")
+            k, v = (x.repeat_interleave(group, 1) for x in (k, v))
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, **kw)
+    return (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   **kw),
+            lambda: torch.autograd.grad(so, (qs, ks, vs), do,
+                                        retain_graph=True))
+
+
+def time_flash_shape(torch, tag, b, hq, hkv, s, d):
+    """The flash launches at one main-path shape (bf16, causal): each
+    held against the plain version, timed beside its bound (dense bf16
+    peak, HBM rate) and achieved TFLOP/s, the plain version and SDPA.
+    The dk/dv time includes its group sum where there is one, which is
+    also timed alone."""
     from paddle_tpu_torch.kernels import flash_attention as tfa
-    b, h, s, d = TRAIN_BATCH, 12, TRAIN_SEQ, 64
-    q, k, v, do = _flash_case(torch, b, h, h, s, s, d, torch.bfloat16, 11)
+    q, k, v, do = _flash_case(torch, b, hq, hkv, s, s, d, torch.bfloat16, 11)
     scale = d ** -0.5
     out, lse = tfa.flash_attention_fwd(q, k, v, True, scale)
     delta = (do.float() * out.float()).sum(-1).contiguous()
@@ -1071,45 +1202,70 @@ def phase_time_flash(torch):
            "dq": (dq.float() - rq.float()).abs().max().item(),
            "dkv": max((dk.float() - rk.float()).abs().max().item(),
                       (dv.float() - rv.float()).abs().max().item())}
-    for key, (got, want) in {"fwd": (out, ref), "dq": (dq, rq),
-                             "dkv": (dk, rk)}.items():
+    for key, want in {"fwd": ref, "dq": rq, "dkv": rk}.items():
         if err[key] > FLASH_RTOL["bfloat16"] * max(
                 1.0, want.float().abs().max().item()):
-            raise AssertionError(f"flash {key} at the 125m shape: {err}")
-    pairs = b * h * s * (s + 1) // 2          # visible (query, key) pairs
-    io = b * h * s * d * 2                    # one bf16 [b, h, s, d]
-    stats = b * h * s * 4                     # one f32 [b, h, s]
-    bounds = {"fwd": bound_ms(4 * io + stats, 4 * pairs * d),
-              "dq": bound_ms(5 * io + 2 * stats, 6 * pairs * d),
-              "dkv": bound_ms(6 * io + 2 * stats, 8 * pairs * d)}
+            raise AssertionError(f"flash {key} at the {tag} shape: {err}")
+    pairs = b * hq * s * (s + 1) // 2         # visible (query, key) pairs
+    io_q = b * hq * s * d * 2                 # one bf16 [b, hq, s, d]
+    io_kv = b * hkv * s * d * 2               # one bf16 [b, hkv, s, d]
+    stats = b * hq * s * 4                    # one f32 [b, hq, s]
+    flops = {"fwd": 4 * pairs * d, "dq": 6 * pairs * d, "dkv": 8 * pairs * d}
+    bounds = {"fwd": bound_ms(2 * io_q + 2 * io_kv + stats, flops["fwd"]),
+              "dq": bound_ms(3 * io_q + 2 * io_kv + 2 * stats, flops["dq"]),
+              "dkv": bound_ms(2 * io_q + 4 * io_kv + 2 * stats,
+                              flops["dkv"])}
     ms = {"fwd": time_ms(torch, lambda: tfa.flash_attention_fwd(
               q, k, v, True, scale), 50),
           "dq": time_ms(torch, lambda: tfa.flash_attention_bwd_dq(
               q, k, v, do, lse, delta, True, scale), 50),
           "dkv": time_ms(torch, lambda: tfa.flash_attention_bwd_dkv(
               q, k, v, do, lse, delta, True, scale), 50)}
+    rows = {key: dict(ms=ms[key], bound_ms=bounds[key][0],
+                      bound_by=bounds[key][1], max_abs_err=err[key],
+                      tflops=flops[key] / ms[key] / 1e9)
+            for key in ms}
+    if hq != hkv:
+        part = torch.randn(2, b, hq, s, d, device="cuda")
+        got = tfa.flash_attention_bwd_dkv_sum(part, k, v)
+        want = tfa.flash_attention_bwd_dkv_sum_reference(part, k, v)
+        sum_err = max((a.float() - w.float()).abs().max().item()
+                      for a, w in zip(got, want))
+        sum_ms = time_ms(torch, lambda: tfa.flash_attention_bwd_dkv_sum(
+            part, k, v), 50)
+        sum_plain = time_ms(torch, lambda: tfa
+                            .flash_attention_bwd_dkv_sum_reference(
+                                part, k, v), 10, "group sum plain")
+        sb = bound_ms(part.numel() * 4 + 2 * io_kv, part.numel())
+        rows["sum"] = dict(ms=sum_ms, bound_ms=sb[0], bound_by=sb[1],
+                           max_abs_err=sum_err, plain_ms=sum_plain,
+                           tflops=part.numel() / sum_ms / 1e9)
     plain_fwd = time_ms(torch, lambda: tfa.flash_attention_reference(
         q, k, v, True, scale), 10, "flash plain forward", waits_ok=True)
     plain_bwd = time_ms(torch, lambda: torch.autograd.grad(
         ref, (qr, kr, vr), do, retain_graph=True), 10,
         "flash plain backward", waits_ok=True)
-    sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), 50)
-    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-    so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        so, (qs, ks, vs), do, retain_graph=True), 50, "SDPA backward")
-    log(f"[time] flash attention at the 125m step shape (b {b}, h {h}, s "
-        f"{s}, d {d}, bf16, causal): fwd {ms['fwd']:.4f} ms (bound "
-        f"{bounds['fwd'][0]:.4f}, {bounds['fwd'][1]}), dq {ms['dq']:.4f} ms "
-        f"(bound {bounds['dq'][0]:.4f}), dk/dv {ms['dkv']:.4f} ms (bound "
-        f"{bounds['dkv'][0]:.4f}); plain fwd {plain_fwd:.4f}, plain bwd "
-        f"{plain_bwd:.4f}; SDPA fwd {sdpa_fwd:.4f}, SDPA bwd "
-        f"{sdpa_bwd:.4f} ms; max|diff| {err}")
-    return {key: dict(ms=ms[key], bound_ms=bounds[key][0],
-                      bound_by=bounds[key][1], max_abs_err=err[key])
-            for key in ms}, dict(plain_fwd=plain_fwd, plain_bwd=plain_bwd,
-                                 sdpa_fwd=sdpa_fwd, sdpa_bwd=sdpa_bwd)
+    sdpa_f, sdpa_b = sdpa_calls(torch, q, k, v, do)
+    sdpa_fwd = time_ms(torch, sdpa_f, 50, "SDPA forward")
+    sdpa_bwd = time_ms(torch, sdpa_b, 50, "SDPA backward")
+    bwd_ms = ms["dq"] + ms["dkv"]
+    log(f"[time] flash attention at the {tag} step shape (b {b}, hq {hq}, "
+        f"hkv {hkv}, s {s}, d {d}, bf16, causal): "
+        + "; ".join(f"{key} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+                    f"{r['bound_by']}; {r['tflops']:.1f} TFLOP/s)"
+                    for key, r in rows.items())
+        + f"; dq + dk/dv {bwd_ms:.4f} ms; plain fwd {plain_fwd:.4f}, plain "
+        f"bwd {plain_bwd:.4f}; SDPA fwd {sdpa_fwd:.4f}, SDPA bwd "
+        f"{sdpa_bwd:.4f} ms (flash/SDPA: fwd {ms['fwd'] / sdpa_fwd:.2f}x, "
+        f"bwd {bwd_ms / sdpa_bwd:.2f}x); max|diff| {err}")
+    return rows, dict(plain_fwd=plain_fwd, plain_bwd=plain_bwd,
+                      sdpa_fwd=sdpa_fwd, sdpa_bwd=sdpa_bwd)
+
+
+def phase_time_flash(torch):
+    """The flash kernels at the llama_125m and llama_1b step shapes."""
+    return {tag: time_flash_shape(torch, tag, *shape)
+            for tag, shape in FLASH_TIME_SHAPES.items()}
 
 
 def phase_time_rms(torch):
@@ -2110,7 +2266,7 @@ def main() -> int:
     times, times8 = phase_time_kernel(torch)
     matmul = phase_time_matmul(torch)
     phase_time_append(torch)
-    flash, yard = phase_time_flash(torch)
+    flash = phase_time_flash(torch)
     adamw = phase_time_adamw(torch, train["n_params"])
     mega = phase_time_megakernel(torch)
     prefill = phase_time_prefill(torch)
@@ -2144,27 +2300,55 @@ def main() -> int:
         "library_ms": dec8["library_ms"], "fp_kernel_ms": dec["ms"],
         "shape": "7B decode step, int8 pool", "prefill_step": pre8,
     })
+    rows, yard = flash["125m"]
+    rows_1b, yard_1b = flash["1b"]
     for name, key, line, plain, library in (
-            ("flash_attention_fwd", "fwd", 47, yard["plain_fwd"],
-             yard["sdpa_fwd"]),
-            ("flash_attention_bwd_dq", "dq", 143, yard["plain_bwd"], None),
-            ("flash_attention_bwd_dkv", "dkv", 182, yard["plain_bwd"],
-             None)):
-        row = flash[key]
+            ("flash_attention_fwd", "fwd", 47, "plain_fwd", "sdpa_fwd"),
+            ("flash_attention_bwd_dq", "dq", 143, "plain_bwd", None),
+            ("flash_attention_bwd_dkv", "dkv", 182, "plain_bwd", None)):
+        row, row_1b = rows[key], rows_1b[key]
         kernels.append({
             "name": name, "route": "cuda",
             "source": src + "flash_attention.cu",
             "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
             "launches": train["launches"][name],
-            "max_abs_err": max(flash_err[name], row["max_abs_err"]),
-            "ms": row["ms"], "plain_ms": plain,
+            "max_abs_err": max(flash_err[name], row["max_abs_err"],
+                               row_1b["max_abs_err"]),
+            "ms": row["ms"], "plain_ms": yard[plain],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": library, "shape": shape})
+            "library_ms": library and yard[library], "shape": shape,
+            "tflops": row["tflops"],
+            "llama_1b": dict(
+                ms=row_1b["ms"], plain_ms=yard_1b[plain],
+                bound_ms=row_1b["bound_ms"], bound_by=row_1b["bound_by"],
+                tflops=row_1b["tflops"],
+                library_ms=library and yard_1b[library],
+                launches=train_1b["launches"][name],
+                shape="llama_1b step (b 1, hq 32, hkv 4, s 2048, d 64, "
+                      "bf16, causal; dk/dv with its group sum)")})
         if library is None:
             # no single PyTorch call computes dq (or dk, dv) alone: the
             # backward rows carry SDPA's whole backward beside them, and
             # their plain time is the plain version's whole backward
             kernels[-1]["library_backward_ms"] = yard["sdpa_bwd"]
+            kernels[-1]["llama_1b"]["library_backward_ms"] = \
+                yard_1b["sdpa_bwd"]
+    row = rows_1b["sum"]
+    kernels.append({
+        "name": "flash_attention_bwd_dkv_sum", "route": "cuda",
+        "source": src + "flash_attention.cu",
+        # the Pallas dk/dv kernel writes per query head; the group is
+        # summed outside it
+        "replaces": "paddle_tpu/kernels/flash_attention.py:313",
+        "launches": train_1b["launches"]["flash_attention_bwd_dkv_sum"],
+        "max_abs_err": max(flash_err["flash_attention_bwd_dkv_sum"],
+                           row["max_abs_err"]),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        # no single PyTorch call sums the group in f32 and casts
+        "library_ms": None,
+        "shape": "llama_1b dk/dv partials [2, 1, 32, 2048, 64] f32 "
+                 "(launches: 10 llama_1b steps)"})
     kernels.append({
         "name": "fused_adamw", "route": "cuda",
         "source": src + "fused_adamw.cu",

@@ -8,7 +8,8 @@ counts nothing.
 """
 LAUNCHES = {"ragged_paged_attention": 0, "ragged_paged_attention_int8": 0,
             "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0, "fused_adamw": 0,
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dkv_sum": 0,
+            "fused_adamw": 0,
             "int8_matmul": 0, "int4_matmul": 0, "decode_megakernel": 0,
             "prefill_megakernel": 0, "rms_norm_fwd": 0, "rms_norm_bwd": 0}
 

@@ -5,7 +5,9 @@ use by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``kernels/_build/lib<name>-<hash>.so`` (the hash is the source's, so an
 edited source never loads a stale library), then loaded with ``ctypes``.
 Nothing here includes PyTorch's headers, which keeps a build at seconds;
-the wrappers pass raw pointers and the current stream.
+the wrappers pass raw pointers and the current stream. ``-Xptxas -v``
+makes nvcc report each kernel's registers and spills; :func:`ptxas_log`
+returns that report.
 
 Nothing is compiled at import time: the CPU tests import every module
 and this machine may have no ``nvcc``.
@@ -24,9 +26,11 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+#: nvcc's output per source compiled by this process
+_logs: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -48,9 +52,10 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _start(name: str):
-    """Start ``nvcc`` for one source; None when the library exists."""
-    out = library_path(name)
+def _start(name: str, out: Path | None = None):
+    """Start ``nvcc`` for one source into ``out`` (the library by
+    default); None when that file exists."""
+    out = out or library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -71,6 +76,7 @@ def _finish(name: str, started) -> None:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)      # atomic: a concurrent loader sees all or none
+    _logs[name] = log
 
 
 def build(names) -> float:
@@ -88,6 +94,17 @@ def kernel_sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def ptxas_log(name: str) -> str:
+    """nvcc's report for ``csrc/<name>.cu`` (``-Xptxas -v``: registers,
+    spills per kernel): this process's build's, else that of a compile
+    into a scratch file, deleted after."""
+    if name not in _logs:
+        scratch = BUILD_DIR / f"report-{name}-{os.getpid()}.so"
+        _finish(name, _start(name, scratch))
+        scratch.unlink(missing_ok=True)
+    return _logs[name]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _loaded.get(name)
@@ -98,4 +115,4 @@ def load(name: str) -> ctypes.CDLL:
 
 
 __all__ = ["BUILD_DIR", "build", "kernel_sources", "library_path", "load",
-           "nvcc"]
+           "nvcc", "ptxas_log"]

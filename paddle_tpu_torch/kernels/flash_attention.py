@@ -11,7 +11,11 @@ Two implementations of one function:
 - :func:`flash_attention_reference`, plain PyTorch: dense f32 scores,
   masked softmax, backward by autograd;
 - the CUDA kernels of ``csrc/flash_attention.cu`` (forward, dq, dk/dv;
-  see its header), built by ``kernels/_build.py``.
+  see its header), built by ``kernels/_build.py``: bf16 on the tensor
+  cores, f32 on CUDA cores, a fixed choice by dtype. With GQA in bf16
+  the dk/dv kernel writes f32 partials per query head and a second
+  launch, :func:`flash_attention_bwd_dkv_sum`, adds each kv head's
+  group in order.
 
 :func:`flash_attention` chooses by where ``q`` lies: a CPU tensor runs
 the plain version, a CUDA tensor goes through :class:`FlashAttention`,
@@ -101,6 +105,22 @@ def _check_kernel_operands(*xs):
                          f"{_HEAD_DIMS}, got {q.shape[-1]}")
     if q.shape[2] == 0 or xs[1].shape[2] == 0:
         raise ValueError("flash attention needs non-empty sequences")
+    if q.dtype == torch.bfloat16:
+        for x in xs:
+            if not _aligned(x):
+                raise ValueError(
+                    f"the bf16 flash kernels copy rows in 16-byte chunks: "
+                    f"pointer and (batch, head, seq) strides {x.stride()[:3]} "
+                    f"must be multiples of 16 bytes")
+
+
+def _aligned(x):
+    """Pointer and every (batch, head, seq) stride of an axis longer
+    than 1 a multiple of 16 bytes."""
+    size = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(
+        n == 1 or (st * size) % 16 == 0
+        for n, st in zip(x.shape[:3], x.stride()[:3]))
 
 
 def _strides(*xs):
@@ -161,7 +181,9 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal, scale):
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal, scale):
     """Launch the dk/dv kernel: ``(dk, dv)`` in the dtype and layout of
-    k and v, summed over each kv head's group of query heads."""
+    k and v, summed over each kv head's group of query heads. In bf16
+    with ``hq != hkv`` the kernel writes f32 partials per query head
+    and :func:`flash_attention_bwd_dkv_sum` adds them."""
     _check(q, k, v)
     _check_kernel_operands(q, k, v, dout)
     _check_stats(q, lse, delta)
@@ -169,16 +191,64 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal, scale):
     hkv, sk = k.shape[1], k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    part = None
+    if q.dtype == torch.bfloat16 and hq != hkv:
+        part = torch.empty((2, b, hq, sk, d), dtype=torch.float32,
+                           device=q.device)
     err = _library().flash_attention_bwd_dkv(
         _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _strides(q, k, v, dout, dk, dv), b, hq, hkv, sq, sk,
-        float(scale), int(causal), _stream(q))
+        dv.data_ptr(), None if part is None else part.data_ptr(),
+        _strides(q, k, v, dout, dk, dv), b, hq, hkv, sq, sk, float(scale),
+        int(causal), _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA "
                            f"error {err}")
     LAUNCHES["flash_attention_bwd_dkv"] += 1
+    if part is not None:
+        _launch_dkv_sum(part, dk, dv)
     return dk, dv
+
+
+def flash_attention_bwd_dkv_sum_reference(part, k, v):
+    """Plain version of the group sum: ``part`` f32 ``[2, b, hq, sk, d]``
+    (each query head's dk and dv) summed over each kv head's group of
+    query heads, in head order, then cast to k's and v's dtype."""
+    b, hkv, sk, d = k.shape
+    grouped = part.view(2, b, hkv, -1, sk, d)
+    acc = grouped[:, :, :, 0]
+    for hh in range(1, grouped.shape[3]):
+        acc = acc + grouped[:, :, :, hh]
+    return acc[0].to(k.dtype), acc[1].to(v.dtype)
+
+
+def flash_attention_bwd_dkv_sum(part, k, v):
+    """Launch the group sum (bf16 k and v, ``hq != hkv``): ``(dk, dv)``
+    in the dtype and layout of k and v, bitwise the plain version's."""
+    _check_kernel_operands(k, v)
+    b, hkv, sk, d = k.shape
+    if part.dtype != torch.float32 or part.dim() != 5 or \
+            tuple(part.shape[:2]) != (2, b) or \
+            tuple(part.shape[3:]) != (sk, d) or part.shape[2] % hkv or \
+            not part.is_contiguous() or part.device != k.device:
+        raise ValueError(f"partials must be contiguous f32 [2, {b}, hq, {sk}, "
+                         f"{d}] on k's device, got {tuple(part.shape)}")
+    if k.dtype != torch.bfloat16:
+        raise TypeError(f"the group sum is the bf16 path's, got {k.dtype}")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_dkv_sum(part, dk, dv)
+    return dk, dv
+
+
+def _launch_dkv_sum(part, dk, dv):
+    _, b, hq, sk, d = part.shape
+    err = _library().flash_attention_bwd_dkv_sum(
+        d, part.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(dk, dv), b,
+        hq, dk.shape[1], sk, _stream(dk))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_dkv_sum launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["flash_attention_bwd_dkv_sum"] += 1
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale):
@@ -207,8 +277,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
+        if dout.stride(-1) != 1 or not _aligned(dout):
+            dout = dout.contiguous()     # autograd's own buffer, not an input
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal,
                                          ctx.scale)
         return dq, dk, dv, None, None
@@ -247,15 +317,21 @@ def _library():
             [f, i, p]
         lib.flash_attention_bwd_dq.argtypes = [i, i] + [p] * 8 + [i] * 5 + \
             [f, i, p]
-        lib.flash_attention_bwd_dkv.argtypes = [i, i] + [p] * 9 + [i] * 5 + \
-            [f, i, p]
+        lib.flash_attention_bwd_dkv.argtypes = [i, i] + [p] * 10 + \
+            [i] * 5 + [f, i, p]
+        lib.flash_attention_bwd_dkv_sum.argtypes = [i] + [p] * 4 + [i] * 4 + \
+            [p]
+        lib.flash_attention_smem_bytes.argtypes = [i, i, i]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
         for fn in (lib.flash_attention_fwd, lib.flash_attention_bwd_dq,
-                   lib.flash_attention_bwd_dkv):
+                   lib.flash_attention_bwd_dkv,
+                   lib.flash_attention_bwd_dkv_sum):
             fn.restype = i
     return lib
 
 
 __all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_sum",
+           "flash_attention_bwd_dkv_sum_reference", "flash_attention_bwd_dq",
            "flash_attention_fwd", "flash_attention_reference",
            "flash_attention_with_lse"]

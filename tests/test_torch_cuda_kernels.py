@@ -308,12 +308,16 @@ def test_low_bit_engine_on_the_card_matches_the_cpu(cuda, knobs):
 # ---------------------------------------------------------------------------
 
 #: (b, hq, hkv, sq, sk, d); tails that are not a multiple of the 64-row
-#: tiles, sq < sk and sq > sk
+#: tiles, sq < sk and sq > sk; llama_1b's GQA 8:1 grouping; one query
+#: and one key; an sq that is not a multiple of the mma fragment's 16 rows
 FLASH_CASES = {
     "mha_d64": (2, 4, 4, 256, 256, 64),
     "gqa8_2_d128_tail": (1, 8, 2, 192, 320, 128),
     "gqa4_2_sq_gt_sk": (1, 4, 2, 320, 192, 128),
     "gqa4_1_ragged": (2, 4, 1, 100, 77, 64),
+    "gqa8_1_d64": (1, 32, 4, 512, 512, 64),
+    "one_row": (1, 2, 1, 1, 1, 64),
+    "sq23_d128": (2, 4, 2, 23, 90, 128),
 }
 
 #: flash kernels vs plain version, max |diff| over max(1, max |plain|):
@@ -345,6 +349,9 @@ def test_flash_kernels_match_plain_version(cuda, case, causal, dtype):
     assert LAUNCHES["flash_attention_fwd"] == 1
     assert LAUNCHES["flash_attention_bwd_dq"] == 1
     assert LAUNCHES["flash_attention_bwd_dkv"] == 1
+    # bf16 GQA: per-query-head f32 partials, summed by a second launch
+    grouped = dtype == torch.bfloat16 and q.shape[1] != k.shape[1]
+    assert LAUNCHES["flash_attention_bwd_dkv_sum"] == int(grouped)
     want, want_lse = tfa.flash_attention_reference(q, k, v, causal)
     want_grads = torch.autograd.grad(want, (q, k, v), do)
     live = want_lse > -1e29
@@ -357,6 +364,55 @@ def test_flash_kernels_match_plain_version(cuda, case, causal, dtype):
         err = (got.float() - ref.float()).abs().max().item()
         assert err <= FLASH_TOL[dtype] * max(1.0, ref.float().abs().max()
                                              .item()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_backward_is_bitwise_repeatable(cuda, dtype):
+    """Two backward launches on the same inputs give the same bits for
+    dq, dk and dv: no atomics; the GQA group sum runs in a fixed order."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    q, k, v, do = _flash_inputs("gqa8_1_d64", cuda, dtype, seed=4)
+    out, lse = tfa.flash_attention_fwd(q, k, v, True, 0.125)
+    first = tfa.flash_attention_bwd(q, k, v, out, lse, do, True, 0.125)
+    second = tfa.flash_attention_bwd(q, k, v, out, lse, do, True, 0.125)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_flash_dkv_group_sum_matches_plain_version_bitwise(cuda):
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    g = torch.Generator().manual_seed(5)
+    part = torch.randn(2, 2, 8, 70, 64, generator=g).to(cuda)
+    k, v = (torch.zeros(2, 70, 2, 64, device=cuda, dtype=torch.bfloat16)
+            .transpose(1, 2) for _ in range(2))
+    reset_launch_counts()
+    dk, dv = tfa.flash_attention_bwd_dkv_sum(part, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd_dkv_sum"] == 1
+    assert dk.stride() == k.stride()
+    want = tfa.flash_attention_bwd_dkv_sum_reference(part, k, v)
+    assert torch.equal(dk, want[0]) and torch.equal(dv, want[1])
+
+
+@pytest.mark.cuda
+def test_flash_bf16_rejects_unaligned_seq_stride(cuda):
+    """The bf16 kernels copy rows in 16-byte chunks: a seq stride of 68
+    elements (136 bytes) raises, with no copy and no other path."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    buf = torch.zeros(1, 2, 16, 68, device=cuda, dtype=torch.bfloat16)
+    q = buf[..., :64]
+    k, v = (torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.bfloat16)
+            for _ in range(2))
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="16 bytes"):
+        tfa.flash_attention_fwd(q, k, v, True, 0.125)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tfa.flash_attention_fwd(k, q, v, True, 0.125)
+    assert LAUNCHES["flash_attention_fwd"] == 0
 
 
 @pytest.mark.cuda

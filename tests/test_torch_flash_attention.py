@@ -119,3 +119,103 @@ def test_functional_attention_casts_its_inputs_under_o1():
         out = TF.scaled_dot_product_attention(q, k, v, is_causal=True)
     assert out.dtype == torch.bfloat16
     assert TF.scaled_dot_product_attention(q, k, v).dtype == torch.float32
+
+
+#: the card tests' flash geometries (b, hq, hkv, sq, sk, d), with
+#: llama_1b's GQA 8:1 grouping at s 256
+ROUNDING_GEOMETRIES = {
+    "mha_d64": (2, 4, 4, 256, 256, 64),
+    "gqa8_2_d128_tail": (1, 8, 2, 192, 320, 128),
+    "gqa4_2_sq_gt_sk": (1, 4, 2, 320, 192, 128),
+    "gqa4_1_ragged": (2, 4, 1, 100, 77, 64),
+    "gqa8_1_d64": (1, 32, 4, 256, 256, 64),
+    "one_row": (1, 2, 1, 1, 1, 64),
+    "sq23_d128": (2, 4, 2, 23, 90, 128),
+}
+
+#: the card's bf16 bound on |kernel - plain| over max(1, max |plain|)
+#: (tests/test_torch_cuda_kernels.py FLASH_TOL, chip_smoke.py FLASH_RTOL)
+BF16_TOL = 2e-2
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _tensor_core_arithmetic(q, k, v, do, causal, scale, tile=64):
+    """The bf16 tensor-core kernels' arithmetic in plain PyTorch, tile by
+    tile over 64 keys: products take bf16 operands and sum in f32, scale
+    multiplies the f32 score, the running max and the denominator l come
+    from the f32 probabilities with online rescaling, and P and dS =
+    P (dP - delta) are rounded to bf16 only as operands of their
+    products. Returns out, lse, dq, dk, dv."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, 1)
+    vf = v.float().repeat_interleave(group, 1)
+    qi = torch.arange(sq)[:, None]
+    tiles = [(k0, min(k0 + tile, sk)) for k0 in range(0, sk, tile)]
+
+    def scores(k0, k1):
+        s = torch.matmul(qf, kf[:, :, k0:k1].transpose(-1, -2)) * scale
+        if causal:
+            s = s.masked_fill(qi + (sk - sq) < torch.arange(k0, k1)[None],
+                              float("-inf"))
+        return s
+
+    m = torch.full((b, hq, sq, 1), -1e30)
+    l = torch.zeros(b, hq, sq, 1)
+    acc = torch.zeros(b, hq, sq, d)
+    for k0, k1 in tiles:
+        s = scores(k0, k1)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - mn)                 # masked: exactly 0
+        alpha = torch.exp(m - mn)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(_bf16(p), vf[:, :, k0:k1])
+        m = mn
+    dead = l == 0
+    out = (acc / torch.where(dead, torch.ones_like(l), l)).to(q.dtype)
+    lse = torch.where(dead, torch.full_like(l, -1e30), m + torch.log(l))
+
+    delta = (dof * out.float()).sum(-1, keepdim=True)
+    dq = torch.zeros(b, hq, sq, d)
+    dkh, dvh = torch.zeros(b, hq, sk, d), torch.zeros(b, hq, sk, d)
+    for k0, k1 in tiles:
+        p = torch.exp(scores(k0, k1) - lse)
+        dp = torch.matmul(dof, vf[:, :, k0:k1].transpose(-1, -2))
+        ds = _bf16(p * (dp - delta))
+        dq += torch.matmul(ds, kf[:, :, k0:k1])
+        dkh[:, :, k0:k1] = torch.matmul(ds.transpose(-1, -2), qf)
+        dvh[:, :, k0:k1] = torch.matmul(_bf16(p).transpose(-1, -2), dof)
+    dk = (dkh * scale).view(b, hkv, group, sk, d).sum(2)
+    dv = dvh.view(b, hkv, group, sk, d).sum(2)
+    return (out, lse.squeeze(-1), (dq * scale).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("geo", sorted(ROUNDING_GEOMETRIES))
+def test_tensor_core_rounding_holds_the_card_tolerance(geo, causal):
+    """Where the bf16 kernels round (P and dS to bf16 before their
+    products) keeps them within the card's bf16 tolerance of the f32
+    plain version, and lse within 1e-4: checked here, before any chip."""
+    b, hq, hkv, sq, sk, d = ROUNDING_GEOMETRIES[geo]
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(hq, hkv, sq, sk, d, seed=2, b=b))
+    scale = d ** -0.5
+    got = _tensor_core_arithmetic(q, k, v, do, causal, scale)
+    tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+    ref, ref_lse = tfa.flash_attention_reference(tq, tk, tv, causal, scale)
+    want = (ref, ref_lse, *torch.autograd.grad(ref, (tq, tk, tv), do))
+    live = ref_lse > -1e29
+    assert torch.equal(got[1] > -1e29, live)
+    assert (got[1] - ref_lse)[live].abs().max().item() <= 1e-4
+    for name, a, w in zip(("out", "dq", "dk", "dv"), got[:1] + got[2:],
+                          want[:1] + want[2:]):
+        assert a.dtype == w.dtype == torch.bfloat16, name
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= BF16_TOL * max(1.0, w.float().abs().max().item()), \
+            (name, err)
