@@ -7,14 +7,18 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. build every CUDA kernel of the port from ``paddle_tpu_torch/kernels/
    csrc`` with nvcc for sm_90a (one nvcc per source, started together)
-   and report each flash kernel instantiation's registers, spills
-   (``-Xptxas -v``), dynamic shared memory and tensor-core instructions
-   (HMMA/HGMMA in ``cuobjdump -sass``): a bf16 forward, dq or dk/dv
-   kernel without them, or with spills, fails the run;
+   and report each flash and ragged kernel instantiation's registers,
+   spills (``-Xptxas -v``) and tensor-core instructions (HMMA/HGMMA in
+   ``cuobjdump -sass``), and flash's and the ragged split kernel's
+   dynamic shared memory: a bf16 flash forward, dq or dk/dv
+   kernel, or a ragged tensor-core instantiation (bf16 or int8 pool),
+   without them or with spills fails the run;
 2. hold each kernel against its plain PyTorch version on the card:
    ragged paged attention (f32 and bf16, a mixed GQA batch: decode rows,
-   multi-page prefill chunks, padding rows, a dead tail) over fp pools
-   and over int8 pools with per-(head, page) scales; the dequant-matmul
+   multi-page prefill chunks, padding rows, a dead tail; and a batch of
+   rows over several kv splits: one run, one position past it, kv 1, a
+   chunk of a 600-token prompt) over fp pools and over int8 pools with
+   per-(head, page) scales, a second call bitwise equal; the dequant-matmul
    (int8 and int4; bf16 at the 7B projection shapes, bf16 and f32 at an
    odd-K ragged-N shape); flash attention forward and backward (f32 and
    bf16 at the llama_125m, llama_1b GQA and a d=128 ragged-tail
@@ -42,14 +46,14 @@ Phases, each of which must pass (any failure exits non-zero):
 4. serve 8 requests on a full-width Llama-2-7B (bf16, 32 layers, random
    N(0, 0.02) weights from a seeded generator) through ``LLMEngine``,
    with the kernel launch counts reset just before and read just after:
-   every attention call must have gone through the kernel (launches =
-   layers x ragged steps), every request must finish, the pool audit
-   must pass;
+   every attention call must have gone through the kernel and its merge
+   (launches = layers x ragged steps each), every request must finish,
+   the pool audit must pass;
 5. phase ``[7b-q]``: the same load three more times on the same model,
    quantized on the card: int8 projections + int8 pool, int4
    projections + int8 pool, int8 projections + bf16 pool; each must
-   finish every request with 7 dequant-matmul launches and 1 attention
-   launch per layer and ragged step (every other count 0);
+   finish every request with 7 dequant-matmul launches, 1 attention
+   launch and 1 merge per layer and ragged step (every other count 0);
 6. phase ``[7b-burst]``: the same load with ``burst_tokens=8`` in four
    engines (bf16, and int8 projections + int8 pool, each at layer and at
    model scope): every request finishes, the decode megakernel launches
@@ -82,6 +86,7 @@ Phases, each of which must pass (any failure exits non-zero):
     for flash at the llama_125m and llama_1b step shapes with achieved
     TFLOP/s, ``enable_gqa`` at 1b; ``torch.matmul`` on the
     unquantized bf16 weight, ``torch.optim.AdamW(fused=True)``,
+    the ragged kernel's split and merge launches apart by the profiler,
     ``F.rms_norm``; for the decode and prefill megakernels, which no
     single PyTorch call matches, the unfused path's time for the same
     layer), and the int8 pool's segmented append (plain PyTorch) at the
@@ -337,6 +342,7 @@ def phase_build():
         _build.load(n)
     log(f"[build] {names} built for sm_90a in {secs:.2f} s (set-up)")
     report_flash_build(_build)
+    report_ragged_build(_build)
 
 
 #: a flash kernel's mangled name: template and head dim
@@ -345,15 +351,12 @@ FLASH_SYMBOL = re.compile(r"(flash_(?:fwd|bwd|dkv)\w*?kernel)ILi(\d+)E")
 FLASH_F32 = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
-def report_flash_build(_build):
-    """Per flash kernel instantiation: registers and spills from nvcc's
-    ``-Xptxas -v`` report, dynamic shared memory per launch, and the
-    tensor-core instructions (HMMA/HGMMA) in its SASS (``cuobjdump``).
-    Raises if a bf16 flash kernel has no tensor-core instruction or
-    spills."""
-    from paddle_tpu_torch.kernels import flash_attention as tfa
+def build_info(_build, name):
+    """Per kernel of ``csrc/<name>.cu`` (mangled name): registers and
+    spills from nvcc's ``-Xptxas -v`` report, and the count of
+    tensor-core instructions (HMMA/HGMMA) in its SASS (``cuobjdump``)."""
     ptx, entry = {}, None
-    for line in _build.ptxas_log("flash_attention").splitlines():
+    for line in _build.ptxas_log(name).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             entry = m.group(1)
@@ -367,7 +370,7 @@ def report_flash_build(_build):
             ptx[entry]["registers"] = int(m.group(1))
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
+        [str(cuobjdump), "-sass", str(_build.library_path(name))],
         capture_output=True, text=True, check=True, timeout=300).stdout
     mma, fn = {}, None
     for line in sass.splitlines():
@@ -377,6 +380,50 @@ def report_flash_build(_build):
             mma[fn] = 0
         elif fn and re.search(r"\bH(G)?MMA\b", line):
             mma[fn] += 1
+    return ptx, mma
+
+
+#: a ragged kernel's mangled name: body and template arguments
+RAGGED_SYMBOL = re.compile(r"(ragged_kernel_(?:mma|simt|merge))I(\w*?)EEv")
+
+
+def report_ragged_build(_build):
+    """Per ragged kernel instantiation: registers, spills and HMMA count.
+    The tensor-core body is instantiated for head dims up to 64, 128 and
+    256 over bf16 and int8 pools: raises unless all six have tensor-core
+    instructions and no spills."""
+    ptx, mma = build_info(_build, "ragged_paged_attention")
+    tc = []
+    for name in sorted(set(ptx) | set(mma)):
+        m = RAGGED_SYMBOL.search(name)
+        if not m:
+            continue
+        info = ptx.get(name, {})
+        row = (m.group(1), m.group(2), info.get("registers"),
+               info.get("spills"), mma.get(name, 0))
+        if m.group(1) == "ragged_kernel_mma":
+            tc.append(row)
+        log(f"[build] {m.group(1)}<{m.group(2)}>: {row[2]} registers, "
+            f"spills (store, load bytes) {row[3]}, {row[4]} HMMA/HGMMA "
+            f"instructions")
+    if len(tc) != 6 or any(r[4] == 0 or r[3] != (0, 0) for r in tc):
+        raise AssertionError(f"ragged tensor-core kernels without HMMA or "
+                             f"with spills: {tc}")
+    from paddle_tpu_torch.kernels import paged_attention as tpa
+    smem = tpa._library().ragged_paged_attention_smem_bytes
+    log(f"[build] ragged split kernel at the 7B step (8 rows, d 128): "
+        f"{smem(1, 0, 8, 128)} B (bf16 pool) and {smem(1, 1, 8, 128)} B "
+        f"(int8 pool) of dynamic shared memory per block")
+
+
+def report_flash_build(_build):
+    """Per flash kernel instantiation: registers and spills from nvcc's
+    ``-Xptxas -v`` report, dynamic shared memory per launch, and the
+    tensor-core instructions (HMMA/HGMMA) in its SASS (``cuobjdump``).
+    Raises if a bf16 flash kernel has no tensor-core instruction or
+    spills."""
+    from paddle_tpu_torch.kernels import flash_attention as tfa
+    ptx, mma = build_info(_build, "flash_attention")
     lib = tfa._library()
     kinds = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
     rows = []
@@ -405,35 +452,58 @@ def report_flash_build(_build):
                              f"instructions or with spills: {bf16}")
 
 
-def phase_kernel_parity(torch):
+#: the ragged parity batches, GQA 8/2 at d 128: (rows, pool pages,
+#: pages per row, T). "mixed": decode rows, prefill chunks over several
+#: pages (first chunks and mid-prompt ones), padding rows (last, as the
+#: engine packs them) and dead blocks at the tail; "multi-run": horizons
+#: of one 64-position run and one position past it, kv 1, a 40-token
+#: chunk of a 600-token prompt and long decode rows (8 splits, the merge)
+RAGGED_BATCHES = {
+    "mixed GQA batch": ([(1, 1), (1, 37), (20, 45), (8, 8), (13, 70),
+                         (1, 16), (0, 0), (0, 0)], 40, 8, 96),
+    "multi-run batch": ([(1, 64), (1, 65), (1, 1), (40, 600), (1, 632),
+                         (13, 300), (0, 0)], 200, 40, 112),
+}
+
+
+def ragged_parity(torch, label, seed, int8_pool):
+    """The ragged kernel against its plain version over each parity
+    batch, f32 and bf16; a second call must give the same bits. Returns
+    the worst |diff|."""
     from paddle_tpu_torch.kernels.paged_attention import (
         ragged_paged_attention, ragged_paged_attention_reference)
-    # GQA 8/2; decode rows, prefill chunks over several pages (first
-    # chunks and mid-prompt ones), padding rows (last, as the engine
-    # packs them), and dead blocks at the tail of the buffer
-    rows = [(1, 1), (1, 37), (20, 45), (8, 8), (13, 70), (1, 16), (0, 0),
-            (0, 0)]
     worst = 0.0
-    for name, dtype in (("float32", torch.float32),
-                        ("bfloat16", torch.bfloat16)):
-        args = ragged_inputs(torch, rows, hq=8, hkv=2, d=128, ps=16,
-                             num_pages=40, pps=8, q_block=8, t_total=96,
-                             dtype=dtype, seed=3)
-        q, k, v, tables, q_starts, q_lens, kv_lens = args
-        got = ragged_paged_attention(q, k, v, tables, q_starts, q_lens,
-                                     kv_lens, q_block=8)
-        torch.cuda.synchronize()
-        want = ragged_paged_attention_reference(q, k, v, tables, q_starts,
-                                                q_lens, kv_lens)
-        err = (got.float() - want.float()).abs().max().item()
-        ok = bool(torch.isfinite(got.float()).all()) and err <= ATOL[name]
-        log(f"[parity] ragged_paged_attention {name} mixed GQA batch: "
-            f"max|kernel - plain| = {err:.3e} (atol {ATOL[name]:g})")
-        if not ok:
-            raise AssertionError(f"kernel disagrees with its plain version "
-                                 f"in {name}: {err}")
-        worst = max(worst, err)
+    for batch, (rows, pages, pps, t) in RAGGED_BATCHES.items():
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            q, k, v, tables, q_starts, q_lens, kv_lens = ragged_inputs(
+                torch, rows, hq=8, hkv=2, d=128, ps=16, num_pages=pages,
+                pps=pps, q_block=8, t_total=t, dtype=dtype, seed=seed)
+            kw = {}
+            if int8_pool:
+                k, ks, v, vs = quantize_pools(torch, k, v)
+                kw = dict(k_scales=ks, v_scales=vs)
+            args = (q, k, v, tables, q_starts, q_lens, kv_lens)
+            got = ragged_paged_attention(*args, q_block=8, **kw)
+            again = ragged_paged_attention(*args, q_block=8, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{label} {name} {batch}: two calls "
+                                     f"differ")
+            want = ragged_paged_attention_reference(*args, **kw)
+            err = (got.float() - want.float()).abs().max().item()
+            log(f"[parity] {label} {name} {batch}: max|kernel - plain| = "
+                f"{err:.3e} (atol {ATOL[name]:g}); a second call bitwise "
+                f"equal")
+            if not (torch.isfinite(got.float()).all() and err <= ATOL[name]):
+                raise AssertionError(f"{label} disagrees with its plain "
+                                     f"version in {name} {batch}: {err}")
+            worst = max(worst, err)
     return worst
+
+
+def phase_kernel_parity(torch):
+    return ragged_parity(torch, "ragged_paged_attention", 3, False)
 
 
 def phase_engine_parity(torch):
@@ -488,8 +558,6 @@ def phase_lowbit_parity(torch):
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.kernels.int8_matmul import (
         dequant_matmul, dequant_matmul_reference)
-    from paddle_tpu_torch.kernels.paged_attention import (
-        ragged_paged_attention, ragged_paged_attention_reference)
     from paddle_tpu_torch.quantization.low_bit import quantize_weight
     worst = {"int8_matmul": 0.0, "int4_matmul": 0.0,
              "ragged_paged_attention_int8": 0.0}
@@ -516,27 +584,8 @@ def phase_lowbit_parity(torch):
             log(f"[parity] dequant_matmul int{bits} {dtype} M {m} K {k} N "
                 f"{n}: max|kernel - plain| = {err:.3e} (<= {tol:g} x "
                 f"max(1, max|plain|) = {tol * scale:.3e})")
-    rows = [(1, 1), (1, 37), (20, 45), (8, 8), (13, 70), (1, 16), (0, 0),
-            (0, 0)]
-    for name, dtype in (("float32", torch.float32),
-                        ("bfloat16", torch.bfloat16)):
-        q, k, v, tables, q_starts, q_lens, kv_lens = ragged_inputs(
-            torch, rows, hq=8, hkv=2, d=128, ps=16, num_pages=40, pps=8,
-            q_block=8, t_total=96, dtype=dtype, seed=4)
-        kq, ks, vq, vs = quantize_pools(torch, k, v)
-        args = (q, kq, vq, tables, q_starts, q_lens, kv_lens)
-        got = ragged_paged_attention(*args, q_block=8, k_scales=ks,
-                                     v_scales=vs)
-        torch.cuda.synchronize()
-        want = ragged_paged_attention_reference(*args, k_scales=ks,
-                                                v_scales=vs)
-        err = (got.float() - want.float()).abs().max().item()
-        if not (torch.isfinite(got.float()).all() and err <= ATOL[name]):
-            raise AssertionError(f"int8 ragged kernel {name}: {err}")
-        worst["ragged_paged_attention_int8"] = max(
-            worst["ragged_paged_attention_int8"], err)
-        log(f"[parity] ragged_paged_attention_int8 {name} mixed GQA batch: "
-            f"max|kernel - plain| = {err:.3e} (atol {ATOL[name]:g})")
+    worst["ragged_paged_attention_int8"] = ragged_parity(
+        torch, "ragged_paged_attention_int8", 4, True)
     cfg = pt.llama_tiny_config(num_hidden_layers=2, hidden_size=128,
                                intermediate_size=256, num_attention_heads=4,
                                num_key_value_heads=2, vocab_size=512)
@@ -837,15 +886,19 @@ def report_profile(torch, prof, step_s, label, categories):
 SERVE_LENS = [17, 96, 600, 233, 410, 512, 350]
 SERVE_SAMPLED = {3, 6}
 
+#: the ragged kernel's merge launches once per attention call at the 7B
+#: step (T = 128 over 64-page tables: 2 splits)
+MERGE = {"ragged_paged_attention_merge": 1}
+
 #: the low-bit runs of phase [7b-q]: engine knobs, and the launches each
 #: makes per ragged step per layer (every other count must stay 0)
 LOW_BIT_RUNS = {
     "w8_kv8": (dict(quantized_mode="weight_only_int8", kv_cache_dtype="int8"),
-               {"int8_matmul": 7, "ragged_paged_attention_int8": 1}),
+               {"int8_matmul": 7, "ragged_paged_attention_int8": 1, **MERGE}),
     "w4_kv8": (dict(quantized_mode="weight_only_int4", kv_cache_dtype="int8"),
-               {"int4_matmul": 7, "ragged_paged_attention_int8": 1}),
+               {"int4_matmul": 7, "ragged_paged_attention_int8": 1, **MERGE}),
     "w8": (dict(quantized_mode="weight_only_int8"),
-           {"int8_matmul": 7, "ragged_paged_attention": 1}),
+           {"int8_matmul": 7, "ragged_paged_attention": 1, **MERGE}),
 }
 
 
@@ -1368,6 +1421,30 @@ def phase_time_adamw(torch, n):
                 library_ms=library_ms, max_abs_err=err)
 
 
+def ragged_kernel_split(torch, call, n=20):
+    """Device ms per call of the ragged split launch and of the merge
+    (``torch.profiler``, kernel names), over n calls back to back."""
+    from torch.autograd import DeviceType
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    split = merge = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or "ragged_kernel" not in e.key:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if "ragged_kernel_merge" in e.key:
+            merge += us
+        else:
+            split += us
+    return split / 1e3 / n, merge / 1e3 / n
+
+
 def phase_time_kernel(torch):
     """Rows 1 and 2: the ragged kernel over a bf16 pool and over the same
     pool quantized to int8, at the 7B step's shapes."""
@@ -1411,14 +1488,20 @@ def phase_time_kernel(torch):
             library_ms = time_ms(torch, lib, 200)
             bms, by = attention_bound_ms(rows, t_total=128, itemsize=2,
                                          int8_pool=pool == "int8", **geo)
+            split_ms, merge_ms = ragged_kernel_split(torch, kern)
             res[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                               bound_by=by, library_ms=library_ms,
-                              max_abs_err=err)
+                              max_abs_err=err, split_kernel_ms=split_ms,
+                              merge_ms=merge_ms)
             log(f"[time] ragged_paged_attention 7B {label} step ({pool} "
                 f"pool, bf16 q, rows (q_len, kv_len) {rows}): kernel "
                 f"{ms:.4f} ms, bound {bms:.4f} ms ({by}), plain "
                 f"{plain_ms:.4f} ms, SDPA on gathered K/V {library_ms:.4f} "
                 f"ms, max|diff| {err:.3e}")
+            log(f"[time]   of which (profiler, 20 calls, L2 warm): split "
+                f"launch {split_ms:.4f} ms, merge {merge_ms:.4f} ms "
+                f"({100 * merge_ms / max(split_ms + merge_ms, 1e-9):.1f}% "
+                f"of the two)")
         del kq, vq, lib_kv
     return out, out8
 
@@ -1798,6 +1881,8 @@ def serve_7b_burst(torch, model, tag, knobs):
     want["decode_megakernel"] = (layers if scope == "layer" else 1) * iters
     attn = "ragged_paged_attention_int8" if quant else "ragged_paged_attention"
     want["prefill_megakernel" if fused else attn] = layers * ragged
+    if not fused:
+        want["ragged_paged_attention_merge"] = layers * ragged
     if quant:
         # ragged steps: 7 projections per layer (fused: the k and v ones
         # of the append outside the kernel); layer-scope bursts: the k and
@@ -2255,7 +2340,8 @@ def main() -> int:
     phase_engine_parity(torch)
     phase_train_parity(torch)
     model = build_7b(torch)
-    bf16 = serve_7b(torch, model, "7b", {"ragged_paged_attention": 1})
+    bf16 = serve_7b(torch, model, "7b", {"ragged_paged_attention": 1,
+                                         **MERGE})
     low = phase_serve_7b_lowbit(torch, model, bf16)
     burst = phase_serve_7b_burst(torch, model, {"bf16": bf16, **low})
     fused = phase_serve_7b_fused(torch, model, {"bf16": bf16, **low}, burst)
@@ -2286,6 +2372,8 @@ def main() -> int:
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
         "shape": "7B decode step", "prefill_step": pre,
+        "merge_launches": bf16["launches"]["ragged_paged_attention_merge"],
+        "split_kernel_ms": dec["split_kernel_ms"], "merge_ms": dec["merge_ms"],
     }]
     dec8, pre8 = times8["decode"], times8["prefill"]
     kernels.append({
@@ -2299,6 +2387,10 @@ def main() -> int:
         "bound_ms": dec8["bound_ms"], "bound_by": dec8["bound_by"],
         "library_ms": dec8["library_ms"], "fp_kernel_ms": dec["ms"],
         "shape": "7B decode step, int8 pool", "prefill_step": pre8,
+        "merge_launches": low["w8_kv8"]["launches"]
+        ["ragged_paged_attention_merge"],
+        "split_kernel_ms": dec8["split_kernel_ms"],
+        "merge_ms": dec8["merge_ms"],
     })
     rows, yard = flash["125m"]
     rows_1b, yard_1b = flash["1b"]

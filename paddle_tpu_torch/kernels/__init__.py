@@ -7,6 +7,7 @@ path went through. A call on CPU tensors runs the plain version and
 counts nothing.
 """
 LAUNCHES = {"ragged_paged_attention": 0, "ragged_paged_attention_int8": 0,
+            "ragged_paged_attention_merge": 0,
             "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dkv_sum": 0,
             "fused_adamw": 0,

@@ -16,7 +16,10 @@ Two implementations of one function:
 - :func:`ragged_paged_attention_reference`, plain PyTorch: per row,
   gather its pages densely and run a causally masked softmax;
 - the CUDA kernel ``csrc/ragged_paged_attention.cu`` (see its header),
-  built by ``kernels/_build.py`` and launched on the current stream.
+  built by ``kernels/_build.py`` and launched on the current stream:
+  a split-KV launch over :func:`ragged_splits` runs of each q block's
+  pages, then (more than one split) a merge launch that combines the
+  runs in order.
 
 :func:`ragged_paged_attention` chooses by where the query lies: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel or
@@ -35,8 +38,17 @@ _MAX_SMEM = 232448
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the pool code of int8 pages for the shared-memory size query
-_INT8_POOL = 2
+#: most kv splits of one q block, and the (q block, kv head, split) slots
+#: the wrapper aims for. At the 7B step (T = 128, q_block 8, 32 kv heads:
+#: 512 blocks, half of them dead padding) that gives 2 splits: 480 busy
+#: blocks against the 396 that fit at once (3 per SM). On the H100 2
+#: splits beat 4 and 8 at both the decode and the prefill step: a
+#: block's start-up (four dependent memory round trips before its first
+#: tile arrives) costs more than the longer walk of fewer splits
+_MAX_SPLITS = 8
+_TARGET_SLOTS = 1024
+#: kv positions per staged tile of the kernel
+_TILE = 64
 
 
 def ragged_block_row(q_starts, num_blocks, q_block):
@@ -47,6 +59,16 @@ def ragged_block_row(q_starts, num_blocks, q_block):
                           device=q_starts.device) * q_block
     row = torch.searchsorted(q_starts, starts, right=True) - 1
     return row.clamp_min(0).to(torch.int32)
+
+
+def ragged_splits(num_blocks, hkv, pages_per_seq, page_size):
+    """The kernel's split count S, from shapes alone (no host read of the
+    lengths): at most 8, at most the 64-position tiles a row's table can
+    hold, and no more than ``1024 / (num_blocks x hkv)`` rounded up, so
+    a large batch keeps one split and its scratch small."""
+    tiles = -(-pages_per_seq * page_size // _TILE)
+    want = -(-_TARGET_SLOTS // max(1, num_blocks * hkv))
+    return max(1, min(_MAX_SPLITS, tiles, want))
 
 
 def ragged_paged_attention_reference(q, k_pages, v_pages, block_tables,
@@ -175,9 +197,9 @@ def _launch_cuda(q, k_pages, v_pages, block_tables, q_starts, q_lens,
                          f"multiple of {vec} for {k_pages.dtype} pools (got "
                          f"{d}) and 16-byte aligned pools")
     lib = _library()
-    rows = q_block * (hq // hkv)
-    pool_code = _INT8_POOL if quant else _DTYPE_CODE[q.dtype]
-    smem = lib.ragged_paged_attention_smem_bytes(pool_code, rows, d, ps)
+    code = _DTYPE_CODE[q.dtype]
+    smem = lib.ragged_paged_attention_smem_bytes(code, int(quant),
+                                                 q_block * (hq // hkv), d)
     if smem > _MAX_SMEM:
         raise ValueError(f"q_block {q_block} x group {hq // hkv} x head_dim "
                          f"{d} needs {smem} bytes of shared memory per block, "
@@ -185,28 +207,51 @@ def _launch_cuda(q, k_pages, v_pages, block_tables, q_starts, q_lens,
     out = torch.empty_like(q)
     if t == 0:
         return out
+    nb = t // q_block
+    splits = ragged_splits(nb, hkv, pps, ps)
+    # f32 partials (m, l, acc) of every split, read by the merge
+    part = torch.empty((splits, t, hq, d) if splits > 1 else (0,),
+                       dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((splits, t, hq, 2) if splits > 1 else (0,),
+                          dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    meta = (block_row.data_ptr(), q_starts.data_ptr(), q_lens.data_ptr(),
+            kv_lens.data_ptr())
     if quant:
         err = lib.ragged_paged_attention_int8(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
-            out.data_ptr(), block_row.data_ptr(), q_starts.data_ptr(),
-            q_lens.data_ptr(), kv_lens.data_ptr(), block_tables.data_ptr(),
-            t // q_block, hq, hkv, d, num_pages, ps, pps, q_block,
-            float(scale), stream)
+            code, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(), out.data_ptr(),
+            part.data_ptr(), part_ml.data_ptr(), *meta,
+            block_tables.data_ptr(), nb, hq, hkv, d, num_pages, ps, pps,
+            q_block, splits, float(scale), stream)
     else:
         err = lib.ragged_paged_attention(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), out.data_ptr(), block_row.data_ptr(),
-            q_starts.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
-            block_tables.data_ptr(), t // q_block, hq, hkv, d, num_pages, ps,
-            pps, q_block, float(scale), stream)
+            code, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            out.data_ptr(), part.data_ptr(), part_ml.data_ptr(), *meta,
+            block_tables.data_ptr(), nb, hq, hkv, d, num_pages, ps, pps,
+            q_block, splits, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
                            f"error {err}")
     LAUNCHES["ragged_paged_attention_int8" if quant
              else "ragged_paged_attention"] += 1
+    if splits > 1:
+        err = lib.ragged_paged_attention_merge(
+            code, out.data_ptr(), part.data_ptr(), part_ml.data_ptr(), *meta,
+            nb, hq, hkv, d, q_block, splits, stream)
+        if err != 0:
+            raise RuntimeError(f"ragged_paged_attention merge launch "
+                               f"failed: CUDA error {err}")
+        LAUNCHES["ragged_paged_attention_merge"] += 1
     return out
+
+
+def ragged_last_body():
+    """The kernel body this process's last launch took: ``"tensor
+    cores"`` (bf16 q, head_dim % 16 == 0 and <= 256) or ``"cuda cores"``
+    (None before the first)."""
+    return {1: "tensor cores", 0: "cuda cores", -1: None}[
+        _library().ragged_paged_attention_last_body()]
 
 
 def _library():
@@ -214,14 +259,19 @@ def _library():
     lib = load("ragged_paged_attention")
     if lib.ragged_paged_attention.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ragged_paged_attention_last_body.argtypes = []
+        lib.ragged_paged_attention_last_body.restype = i
         lib.ragged_paged_attention_smem_bytes.argtypes = [i, i, i, i]
         lib.ragged_paged_attention_smem_bytes.restype = ctypes.c_size_t
         lib.ragged_paged_attention.argtypes = (
-            [i] + [p] * 9 + [i] * 8 + [ctypes.c_float, p])
+            [i] + [p] * 11 + [i] * 9 + [ctypes.c_float, p])
         lib.ragged_paged_attention.restype = i
         lib.ragged_paged_attention_int8.argtypes = (
-            [i] + [p] * 11 + [i] * 8 + [ctypes.c_float, p])
+            [i] + [p] * 13 + [i] * 9 + [ctypes.c_float, p])
         lib.ragged_paged_attention_int8.restype = i
+        lib.ragged_paged_attention_merge.argtypes = [i] + [p] * 7 + [i] * 6 \
+            + [p]
+        lib.ragged_paged_attention_merge.restype = i
     return lib
 
 
@@ -240,5 +290,6 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
         k_scales=k_scales, v_scales=v_scales)
 
 
-__all__ = ["paged_attention", "ragged_block_row", "ragged_paged_attention",
-           "ragged_paged_attention_reference"]
+__all__ = ["paged_attention", "ragged_block_row", "ragged_last_body",
+           "ragged_paged_attention", "ragged_paged_attention_reference",
+           "ragged_splits"]

@@ -27,7 +27,20 @@ CASES = {
     "multipage_prefill": [(37, 37), (20, 45), (1, 9), (0, 0)],
     "mixed": [(1, 1), (1, 37), (20, 45), (8, 8), (13, 70), (1, 16), (0, 0),
               (0, 0)],
+    # a horizon of exactly one 64-position run (written by the split
+    # itself), one a position past it (two runs and the merge), kv 1
+    "run_edge": [(1, 64), (1, 65), (1, 1)],
+    # the 7B prefill step's chunk (its blocks' horizons span many runs)
+    # beside decode rows
+    "prefill_7b": [(64, 600), (1, 49), (1, 128), (1, 233), (1, 560)],
+    # chunks whose q_len is not a multiple of q_block, over several runs
+    "chunk_tail": [(19, 150), (5, 5), (1, 3)],
 }
+
+#: (hq, hkv, d): GQA 8/2 at d 128, MHA at d 32, the Llama-2-7B heads and
+#: the llama_1b heads (GQA 32/4, d 64)
+HEADS = {"gqa8_2": (8, 2, 128), "mha4_d32": (4, 4, 32),
+         "llama7b": (32, 32, 128), "llama1b": (32, 4, 64)}
 
 
 @pytest.fixture
@@ -64,24 +77,88 @@ def _inputs(rows, dev, dtype, *, hq, hkv, d, ps=16, q_block=8, seed=0):
     return fl + ints
 
 
+def _merges(args, hkv, q_block=8, ps=16):
+    """Merge launches one call makes: 1 when the wrapper splits the kv
+    walk (more than one split), else 0."""
+    t, pps = args[0].shape[0], args[3].shape[1]
+    return int(tpa.ragged_splits(t // q_block, hkv, pps, ps) > 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("heads", [(8, 2, 128), (4, 4, 32), (32, 32, 128)],
-                         ids=["gqa8_2", "mha4_d32", "llama7b"])
+@pytest.mark.parametrize("heads", sorted(HEADS))
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_ragged_kernel_matches_plain_version(cuda, case, heads, dtype):
-    hq, hkv, d = heads
+    hq, hkv, d = HEADS[heads]
     args = _inputs(CASES[case], cuda, dtype, hq=hq, hkv=hkv, d=d)
     reset_launch_counts()
     got = tpa.ragged_paged_attention(*args, q_block=8)
     torch.cuda.synchronize()
     assert LAUNCHES["ragged_paged_attention"] == 1
+    assert LAUNCHES["ragged_paged_attention_merge"] == _merges(args, hkv)
     want = tpa.ragged_paged_attention_reference(*args)
     assert got.dtype == dtype and got.shape == want.shape
     assert torch.isfinite(got.float()).all()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= ATOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["mixed", "prefill_7b"])
+def test_ragged_kernel_two_calls_are_bitwise_equal(cuda, case, dtype, pool):
+    """Splits write partials and the merge adds them in split order, no
+    atomics: two calls give the same bits."""
+    args = _inputs(CASES[case], cuda, dtype, hq=8, hkv=2, d=128)
+    kw = {}
+    if pool == "int8":
+        args, ks, vs = _int8_pools(args)
+        kw = dict(k_scales=ks, v_scales=vs)
+    first = tpa.ragged_paged_attention(*args, q_block=8, **kw)
+    second = tpa.ragged_paged_attention(*args, q_block=8, **kw)
+    torch.cuda.synchronize()
+    assert _merges(args, 2) == 1
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,pool,body", [
+    (torch.float32, 32, "fp", "cuda cores"),
+    (torch.float32, 128, "int8", "cuda cores"),
+    (torch.bfloat16, 24, "fp", "cuda cores"),
+    (torch.bfloat16, 32, "fp", "tensor cores"),
+    (torch.bfloat16, 64, "int8", "tensor cores"),
+    (torch.bfloat16, 128, "fp", "tensor cores"),
+    (torch.bfloat16, 128, "int8", "tensor cores"),
+], ids=["f32_d32", "f32_d128_int8", "bf16_d24", "bf16_d32", "bf16_d64_int8",
+        "bf16_d128", "bf16_d128_int8"])
+def test_ragged_kernel_body_follows_dtype_and_head_dim(cuda, dtype, d, pool,
+                                                       body):
+    """The body is fixed by q's dtype and head_dim: the library records
+    which one each launch took (``chip_smoke.py [build]`` shows the
+    tensor-core body's HMMA instructions)."""
+    args = _inputs(CASES["mixed"], cuda, dtype, hq=4, hkv=2, d=d)
+    kw = {}
+    if pool == "int8":
+        args, ks, vs = _int8_pools(args)
+        kw = dict(k_scales=ks, v_scales=vs)
+    other = "cuda cores" if body == "tensor cores" else "tensor cores"
+    # a launch of the other body first, so the record below is this call's
+    tpa.ragged_paged_attention(
+        *_inputs(CASES["mixed"], cuda, torch.bfloat16 if other ==
+                 "tensor cores" else torch.float32, hq=4, hkv=2, d=32),
+        q_block=8)
+    assert tpa.ragged_last_body() == other
+    reset_launch_counts()
+    got = tpa.ragged_paged_attention(*args, q_block=8, **kw)
+    torch.cuda.synchronize()
+    assert tpa.ragged_last_body() == body
+    assert LAUNCHES["ragged_paged_attention_merge"] == 1
+    want = tpa.ragged_paged_attention_reference(*args, **kw)
+    assert (got.float() - want.float()).abs().max().item() <= ATOL[dtype]
 
 
 @pytest.mark.cuda
@@ -116,6 +193,13 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         tpa.ragged_paged_attention(*args, q_block=8)
 
 
+def _engine_merges(eng, cfg):
+    """Merge launches per attention call of the engine's fixed step."""
+    return int(tpa.ragged_splits(eng.step_token_budget // eng.q_block,
+                                 cfg.num_key_value_heads,
+                                 eng.max_pages_per_seq, eng.page_size) > 1)
+
+
 @pytest.mark.cuda
 def test_engine_on_the_card_matches_the_cpu(cuda):
     """Greedy tokens of a small f32 Llama: the engine on the card (every
@@ -137,6 +221,8 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
         steps = eng.metrics_snapshot()["decode_steps"]
         assert launches == (cfg.num_hidden_layers * steps
                             if dev == "cuda" else 0)
+        assert LAUNCHES["ragged_paged_attention_merge"] == \
+            launches * _engine_merges(eng, cfg)
         assert eng.pool.check_invariants()
         tokens[dev] = [outs[r].token_ids for r in rids]
     assert tokens["cuda"] == tokens["cpu"]
@@ -226,11 +312,10 @@ def _int8_pools(args, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("heads", [(8, 2, 128), (4, 4, 32), (32, 32, 128)],
-                         ids=["gqa8_2", "mha4_d32", "llama7b"])
+@pytest.mark.parametrize("heads", sorted(HEADS))
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_ragged_int8_kernel_matches_plain_version(cuda, case, heads, dtype):
-    hq, hkv, d = heads
+    hq, hkv, d = HEADS[heads]
     args, ks, vs = _int8_pools(_inputs(CASES[case], cuda, dtype, hq=hq,
                                        hkv=hkv, d=d))
     reset_launch_counts()
@@ -239,6 +324,7 @@ def test_ragged_int8_kernel_matches_plain_version(cuda, case, heads, dtype):
     torch.cuda.synchronize()
     assert LAUNCHES["ragged_paged_attention_int8"] == 1
     assert LAUNCHES["ragged_paged_attention"] == 0
+    assert LAUNCHES["ragged_paged_attention_merge"] == _merges(args, hkv)
     want = tpa.ragged_paged_attention_reference(*args, k_scales=ks,
                                                 v_scales=vs)
     assert got.dtype == dtype and got.shape == want.shape
@@ -296,6 +382,8 @@ def test_low_bit_engine_on_the_card_matches_the_cpu(cuda, knobs):
         on_card = dev == "cuda"
         layers = cfg.num_hidden_layers
         assert LAUNCHES[attn] == (layers * steps if on_card else 0)
+        assert LAUNCHES["ragged_paged_attention_merge"] == \
+            LAUNCHES[attn] * _engine_merges(eng, cfg)
         assert LAUNCHES[f"int{bits}_matmul"] == \
             (7 * layers * steps if on_card else 0)
         assert eng.pool.check_invariants()
