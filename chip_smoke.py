@@ -12,15 +12,19 @@ Phases, each of which must pass (any failure exits non-zero):
    ``cuobjdump -sass``), and flash's and the ragged split kernel's
    dynamic shared memory: a bf16 flash forward, dq or dk/dv
    kernel, or a ragged tensor-core instantiation (bf16 or int8 pool),
-   without them or with spills fails the run;
+   without them or with spills fails the run; the same for the
+   dequant-matmul's four bf16 instantiations (int8 and int4, wgmma at
+   M > 16, mma.sync at M <= 16), with their shared memory;
 2. hold each kernel against its plain PyTorch version on the card:
    ragged paged attention (f32 and bf16, a mixed GQA batch: decode rows,
    multi-page prefill chunks, padding rows, a dead tail; and a batch of
    rows over several kv splits: one run, one position past it, kv 1, a
    chunk of a 600-token prompt) over fp pools and over int8 pools with
    per-(head, page) scales, a second call bitwise equal; the dequant-matmul
-   (int8 and int4; bf16 at the 7B projection shapes, bf16 and f32 at an
-   odd-K ragged-N shape); flash attention forward and backward (f32 and
+   (int8 and int4; bf16 at every 7B serving shape: the ragged step's
+   projections at M = 128, a layer-scope burst's k/v at M = 8 and the
+   fused layer's k|v column slice in place, a second call bitwise equal;
+   bf16 and f32 at an odd-K ragged-N shape); flash attention forward and backward (f32 and
    bf16 at the llama_125m, llama_1b GQA and a d=128 ragged-tail
    geometry, a second backward bitwise equal to the first; the bf16 GQA
    dk/dv group sum bitwise equal to its plain version); fused AdamW (an
@@ -63,8 +67,9 @@ Phases, each of which must pass (any failure exits non-zero):
    ``prefill_megakernel="fused"`` three more times (bf16; int8
    projections + int8 pool; bf16 in bursts of 8 at model scope): every
    ragged step's layers go through the prefill megakernel (32 launches
-   per ragged step, no ragged-attention launch; the int8 pool's k/v
-   projections outside it: 64 dequant-matmul launches per ragged step;
+   per ragged step, no ragged-attention launch; the int8 pool's k|v
+   projection outside it, one call over the fused weight's adjacent k
+   and v columns: 32 dequant-matmul launches per ragged step;
    one decode-megakernel launch per burst iteration), beside the unfused
    runs of the same call;
 8. train a full-width llama_125m (``bench.py``'s configuration: 12
@@ -85,7 +90,9 @@ Phases, each of which must pass (any failure exits non-zero):
     plain version and a PyTorch yardstick (SDPA forward and backward,
     for flash at the llama_125m and llama_1b step shapes with achieved
     TFLOP/s, ``enable_gqa`` at 1b; ``torch.matmul`` on the
-    unquantized bf16 weight, ``torch.optim.AdamW(fused=True)``,
+    unquantized bf16 weight, for the dequant-matmul at each of its five
+    7B serving shapes with GB/s and TFLOP/s and per layer,
+    ``torch.optim.AdamW(fused=True)``,
     the ragged kernel's split and merge launches apart by the profiler,
     ``F.rms_norm``; for the decode and prefill megakernels, which no
     single PyTorch call matches, the unfused path's time for the same
@@ -343,6 +350,38 @@ def phase_build():
     log(f"[build] {names} built for sm_90a in {secs:.2f} s (set-up)")
     report_flash_build(_build)
     report_ragged_build(_build)
+    report_matmul_build(_build)
+
+
+#: a dequant-matmul bf16 kernel's mangled name: bits, and M <= 16
+MATMUL_SYMBOL = re.compile(r"dequant_matmul_bf16ILi(\d)ELb([01])E")
+
+
+def report_matmul_build(_build):
+    """Per dequant-matmul bf16 instantiation (int8/int4, wgmma at M > 16
+    or mma.sync at M <= 16): registers, spills, tensor-core instructions
+    and dynamic shared memory. Raises unless all four have tensor-core
+    instructions and no spills."""
+    from paddle_tpu_torch.kernels import int8_matmul as tmm
+    ptx, mma = build_info(_build, "int8_matmul")
+    smem = tmm._library().dequant_matmul_smem_bytes
+    rows = []
+    for name in sorted(set(ptx) | set(mma)):
+        m = MATMUL_SYMBOL.search(name)
+        if not m:
+            continue
+        bits, small = int(m.group(1)), int(m.group(2))
+        info = ptx.get(name, {})
+        rows.append((bits, small, info.get("registers"), info.get("spills"),
+                     mma.get(name, 0)))
+        log(f"[build] dequant_matmul_bf16<int{bits}, "
+            f"{'mma.sync, M <= 16' if small else 'wgmma, M > 16'}>: "
+            f"{rows[-1][2]} registers, spills (store, load bytes) "
+            f"{rows[-1][3]}, {rows[-1][4]} HMMA/HGMMA instructions, "
+            f"{smem(bits, small)} B dynamic shared memory")
+    if len(rows) != 4 or any(r[4] == 0 or r[3] != (0, 0) for r in rows):
+        raise AssertionError(f"dequant-matmul kernels without tensor-core "
+                             f"instructions or with spills: {rows}")
 
 
 #: a flash kernel's mangled name: template and head dim
@@ -548,42 +587,72 @@ PROJ_7B = [("q/k/v/o", 4096, 4096, 4), ("gate/up", 4096, 11008, 2),
            ("down", 11008, 4096, 1)]
 STEP_M = 128
 
+#: every shape the dequant-matmul takes on the 7B serving paths: (name,
+#: M, K, N, row stride of the payload): the ragged step's projections,
+#: the k and v projections of a layer-scope burst's append (8 rows), and
+#: the k|v columns of the fused q|k|v weight that the fused int8 + int8-KV
+#: layer projects in place (a column slice, row stride 3 x 4096)
+MATMUL_SHAPES_7B = [(name, STEP_M, k, n, n) for name, k, n, _ in PROJ_7B] + [
+    ("burst k/v", 8, 4096, 4096, 4096),
+    ("fused k|v", STEP_M, 4096, 8192, 12288)]
+
+
+def matmul_case(torch, g, m, k, n, ldw, bits):
+    """bf16 x [m, k], a random N(0, 0.02) bf16 weight [k, ldw] quantized
+    per column, and its last n columns: (x, payload, scale, bf16 weight),
+    the payload and weight column slices (row stride ldw) when ldw > n."""
+    from paddle_tpu_torch.quantization.low_bit import quantize_weight
+    w = (torch.randn(k, ldw, device="cuda", generator=g) * 0.02) \
+        .to(torch.bfloat16)
+    x = torch.randn(m, k, device="cuda", generator=g).to(torch.bfloat16)
+    qw = quantize_weight(w, f"weight_only_int{bits}")
+    lo = ldw - n
+    return x, qw.qdata[:, lo:], qw.scale[lo:], w[:, lo:]
+
 
 def phase_lowbit_parity(torch):
-    """The dequant-matmul (int8 and int4; bf16 at the 7B projection
-    shapes and an odd-K ragged-N shape, f32 at the latter) and the int8
-    ragged kernel (f32 and bf16, the mixed GQA batch) against their plain
-    versions; then a small quantized engine on the card against the CPU.
-    Returns the worst |diff| per kernel."""
+    """The dequant-matmul (int8 and int4; bf16 at every 7B serving shape,
+    two calls bitwise equal, and an odd-K ragged-N shape, f32 at the
+    latter) and the int8 ragged kernel (f32 and bf16, the mixed GQA
+    batch) against their plain versions; then a small quantized engine
+    on the card against the CPU. Returns the worst |diff| per kernel."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.kernels.int8_matmul import (
         dequant_matmul, dequant_matmul_reference)
-    from paddle_tpu_torch.quantization.low_bit import quantize_weight
     worst = {"int8_matmul": 0.0, "int4_matmul": 0.0,
              "ragged_paged_attention_int8": 0.0}
     g = torch.Generator(device="cuda").manual_seed(9)
-    cases = [(STEP_M, k, n, torch.bfloat16) for _, k, n, _ in PROJ_7B]
-    cases += [(8, 1023, 200, torch.bfloat16), (8, 1023, 200, torch.float32)]
-    for m, k, n, dtype in cases:
-        w = torch.randn(k, n, device="cuda", generator=g) * 0.02
-        x = torch.randn(m, k, device="cuda", generator=g).to(dtype)
+    # every 7B serving shape (bf16, a second call bitwise equal), then an
+    # odd K and a ragged N in bf16 and f32
+    cases = [(name, m, k, n, ldw, torch.bfloat16)
+             for name, m, k, n, ldw in MATMUL_SHAPES_7B]
+    cases += [("odd", 8, 1023, 200, 200, torch.bfloat16),
+              ("odd", 8, 1023, 200, 200, torch.float32)]
+    for name, m, k, n, ldw, dtype in cases:
         for bits in (8, 4):
-            qw = quantize_weight(w, f"weight_only_int{bits}")
-            got = dequant_matmul(x, qw.qdata, qw.scale, rows=k, bits=bits)
+            x, wq, sc, _ = matmul_case(torch, g, m, k, n, ldw, bits)
+            x = x.to(dtype)
+            got = dequant_matmul(x, wq, sc, rows=k, bits=bits)
+            again = dequant_matmul(x, wq, sc, rows=k, bits=bits)
             torch.cuda.synchronize()
-            want = dequant_matmul_reference(x, qw.qdata, qw.scale, k, bits)
+            want = dequant_matmul_reference(x, wq, sc, k, bits)
             err = (got.float() - want.float()).abs().max().item()
             scale = max(1.0, want.float().abs().max().item())
             tol = MATMUL_RTOL[str(dtype).replace("torch.", "")]
             if not (torch.isfinite(got.float()).all() and err <= tol * scale):
                 raise AssertionError(f"dequant_matmul int{bits} {dtype} "
-                                     f"{m}x{k}x{n}: |diff| {err} over "
+                                     f"{name} {m}x{k}x{n}: |diff| {err} over "
                                      f"{scale}")
-            name = f"int{bits}_matmul"
-            worst[name] = max(worst[name], err)
-            log(f"[parity] dequant_matmul int{bits} {dtype} M {m} K {k} N "
-                f"{n}: max|kernel - plain| = {err:.3e} (<= {tol:g} x "
-                f"max(1, max|plain|) = {tol * scale:.3e})")
+            if not torch.equal(got, again):
+                raise AssertionError(f"dequant_matmul int{bits} {dtype} "
+                                     f"{name}: two calls differ")
+            key = f"int{bits}_matmul"
+            worst[key] = max(worst[key], err)
+            log(f"[parity] dequant_matmul int{bits} {dtype} {name} (M {m} K "
+                f"{k} N {n}, payload row stride {wq.stride(0)}): "
+                f"max|kernel - plain| = {err:.3e} (<= {tol:g} x max(1, "
+                f"max|plain|) = {tol * scale:.3e}); a second call bitwise "
+                f"equal")
     worst["ragged_paged_attention_int8"] = ragged_parity(
         torch, "ragged_paged_attention_int8", 4, True)
     cfg = pt.llama_tiny_config(num_hidden_layers=2, hidden_size=128,
@@ -1507,29 +1576,25 @@ def phase_time_kernel(torch):
 
 
 def phase_time_matmul(torch):
-    """Row 9 at the 7B projections (M = 128, bf16 activations), int8 and
-    int4, beside each shape's bound, the plain version and torch.matmul
-    of the same activations against the unquantized bf16 weight (cuBLAS
-    reads 2x or 4x the weight bytes). Per body also the sum over one
-    layer's 7 projections."""
-    from paddle_tpu_torch.kernels.int8_matmul import (
-        dequant_matmul, dequant_matmul_reference)
-    from paddle_tpu_torch.quantization.low_bit import quantize_weight
+    """Row 9 at each 7B serving shape (``MATMUL_SHAPES_7B``, bf16
+    activations), int8 and int4, beside the shape's bound, the plain
+    version and torch.matmul of the same activations against the
+    unquantized bf16 weight (cuBLAS reads 2x or 4x the weight bytes), with
+    GB/s and TFLOP/s; per body also one layer's 7 projections at M = 128
+    (``PROJ_7B``)."""
+    from paddle_tpu_torch.kernels import int8_matmul as tmm
     g = torch.Generator(device="cuda").manual_seed(13)
+    count = {name: c for name, _, _, c in PROJ_7B}
     out = {}
     for bits in (8, 4):
         shapes, layer = {}, dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
                                  bytes=0, flops=0, max_abs_err=0.0)
-        for name, k, n, count in PROJ_7B:
-            w = (torch.randn(k, n, device="cuda", generator=g) * 0.02) \
-                .to(torch.bfloat16)
-            x = torch.randn(STEP_M, k, device="cuda", generator=g) \
-                .to(torch.bfloat16)
-            qw = quantize_weight(w, f"weight_only_int{bits}")
-            kern = lambda: dequant_matmul(           # noqa: E731
-                x, qw.qdata, qw.scale, rows=k, bits=bits)
-            plain = lambda: dequant_matmul_reference(  # noqa: E731
-                x, qw.qdata, qw.scale, k, bits)
+        for name, m, k, n, ldw in MATMUL_SHAPES_7B:
+            x, wq, sc, w = matmul_case(torch, g, m, k, n, ldw, bits)
+            kern = lambda: tmm.dequant_matmul(       # noqa: E731
+                x, wq, sc, rows=k, bits=bits)
+            plain = lambda: tmm.dequant_matmul_reference(  # noqa: E731
+                x, wq, sc, k, bits)
             want = plain().float()
             err = (kern().float() - want).abs().max().item()
             if err > MATMUL_RTOL["bfloat16"] * max(1.0, want.abs().max()
@@ -1539,32 +1604,39 @@ def phase_time_matmul(torch):
             plain_ms = time_ms(torch, plain, 10, "dequant-matmul plain",
                                waits_ok=True)
             library_ms = time_ms(torch, lambda: torch.matmul(x, w), 100)
-            nbytes = (STEP_M * k * 2 + qw.qdata.numel() + 4 * n
-                      + STEP_M * n * 2)
-            flops = 2 * STEP_M * k * n
+            nbytes = m * k * 2 + wq.shape[0] * n + 4 * n + m * n * 2
+            flops = 2 * m * k * n
             bms, by = bound_ms(nbytes, flops)
-            shapes[name] = dict(k=k, n=n, ms=ms, plain_ms=plain_ms,
-                                library_ms=library_ms, bound_ms=bms,
-                                bound_by=by, max_abs_err=err)
+            splits = tmm.kernel_splits(bits, m, n, k)
+            shapes[name] = dict(m=m, k=k, n=n, row_stride=ldw, ms=ms,
+                                plain_ms=plain_ms, library_ms=library_ms,
+                                bound_ms=bms, bound_by=by, splits=splits,
+                                gb_s=nbytes / ms / 1e6,
+                                tflop_s=flops / ms / 1e9, max_abs_err=err)
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
                              ("library_ms", library_ms), ("bytes", nbytes),
                              ("flops", flops)):
-                layer[key] += count * val
-            layer["max_abs_err"] = max(layer["max_abs_err"], err)
-            log(f"[time] dequant_matmul int{bits} {name} (M {STEP_M}, K {k}, "
-                f"N {n}, bf16): kernel {ms:.4f} ms, bound {bms:.4f} ms "
-                f"({by}), plain {plain_ms:.4f} ms, torch.matmul on the bf16 "
-                f"weight {library_ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s, "
+                layer[key] += count.get(name, 0) * val
+            if name in count:
+                layer["max_abs_err"] = max(layer["max_abs_err"], err)
+            log(f"[time] dequant_matmul int{bits} {name} (M {m}, K {k}, N "
+                f"{n}, payload row stride {ldw}, bf16, {splits} K splits): "
+                f"kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                f"{nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e9:.1f} "
+                f"TFLOP/s, plain {plain_ms:.4f} ms, torch.matmul on the bf16 "
+                f"weight {library_ms:.4f} ms ({ms / library_ms:.2f}x), "
                 f"max|diff| {err:.3e}")
-            del w, x, qw
+            del x, wq, sc, w
         layer["bound_ms"], layer["bound_by"] = bound_ms(layer.pop("bytes"),
                                                         layer.pop("flops"))
         layer["shapes"] = shapes
         out[bits] = layer
-        log(f"[time] dequant_matmul int{bits}, one 7B layer's 7 projections: "
-            f"kernel {layer['ms']:.4f} ms, bound {layer['bound_ms']:.4f} ms "
-            f"({layer['bound_by']}), plain {layer['plain_ms']:.4f} ms, "
-            f"torch.matmul bf16 {layer['library_ms']:.4f} ms")
+        log(f"[time] dequant_matmul int{bits}, one 7B layer's 7 projections "
+            f"at M = {STEP_M}: kernel {layer['ms']:.4f} ms, bound "
+            f"{layer['bound_ms']:.4f} ms ({layer['bound_by']}), plain "
+            f"{layer['plain_ms']:.4f} ms, torch.matmul bf16 "
+            f"{layer['library_ms']:.4f} ms "
+            f"({layer['ms'] / layer['library_ms']:.2f}x)")
     return out
 
 
@@ -1884,10 +1956,10 @@ def serve_7b_burst(torch, model, tag, knobs):
     if not fused:
         want["ragged_paged_attention_merge"] = layers * ragged
     if quant:
-        # ragged steps: 7 projections per layer (fused: the k and v ones
-        # of the append outside the kernel); layer-scope bursts: the k and
-        # v projections of the append that precedes each megakernel
-        want["int8_matmul"] = layers * ((2 if fused else 7) * ragged
+        # ragged steps: 7 projections per layer (fused: the k|v one of
+        # the append outside the kernel); layer-scope bursts: the k and v
+        # projections of the append that precedes each megakernel
+        want["int8_matmul"] = layers * ((1 if fused else 7) * ragged
                                         + (2 * iters if scope == "layer"
                                            else 0))
     if launches != want or snap["burst_launches"] != bursts or not bursts:
@@ -2171,7 +2243,7 @@ FUSED_RUNS = {
              "bf16"),
     "w8_kv8": (dict(prefill_megakernel="fused",
                     quantized_mode="weight_only_int8", kv_cache_dtype="int8"),
-               {"prefill_megakernel": 1, "int8_matmul": 2}, "w8_kv8"),
+               {"prefill_megakernel": 1, "int8_matmul": 1}, "w8_kv8"),
 }
 
 
@@ -2213,7 +2285,7 @@ def phase_serve_7b_fused(torch, model, unfused, burst):
 def phase_time_prefill(torch):
     """Row 11 at the 7B T = 128 mixed step: the kernel per layer (bf16
     weights and pool; int8 weights and pool, whose whole layer call also
-    runs the k/v projections and the append outside the kernel) beside its
+    runs the k|v projection and the append outside the kernel) beside its
     bound, its plain version and the unfused ragged layer on the same
     inputs (cuBLAS or the dequant-matmul for the projections, the ragged
     kernel, elementwise), and where a launch's time goes."""
@@ -2301,7 +2373,7 @@ def phase_time_prefill(torch):
             f"{wbytes / 1e6:.2f} MB + K/V {kv_bytes / 1e6:.2f} MB, "
             f"{flops / 1e9:.1f} GFLOP), plain {plain_ms:.4f} ms, the unfused "
             f"ragged layer on the same inputs {unfused_ms:.4f} ms"
-            + (f", the whole fused layer call (k/v projections and append "
+            + (f", the whole fused layer call (k|v projection and append "
                f"outside the kernel) {layer_ms:.4f} ms" if quant else "")
             + f", max|diff| {err:.3e}")
         log(f"[time] prefill_megakernel 7B layer, {label}: ms per phase, each "

@@ -1,50 +1,90 @@
 // Weight-only dequant-matmul for Hopper (sm_90a), plain CUDA C++.
 //
 // Replaces the Pallas TPU kernel paddle_tpu/kernels/int8_matmul.py:124
-// (_pallas_matmul, bodies _kernel_int8 :61 and _kernel_int4 :80):
+// (_pallas_matmul :103, bodies _kernel_int8 :61 and _kernel_int4 :80):
 //
 //   out[M, N] = x[M, K] @ (w_q[K, N] * scale[N])     (out in x's type)
 //
-// w_q is int8 per out channel ([K, N], N contiguous), or int4 packed two
-// per byte along K ([ceil(K/2), N]: row 2r in the low nibble, 2r+1 in
-// the high one, each sign-extended). The weight never exists in fp in
-// device memory: each tile is converted on its way into shared memory.
+// w_q is int8 per out channel ([K, N], unit column stride, row stride
+// ldw >= N: a column slice of a wider weight is read in place), or int4
+// packed two per byte along K ([ceil(K/2), N]: row 2r in the low nibble,
+// 2r+1 in the high one, each sign-extended). The weight never exists in
+// fp, in device memory or in shared memory.
 //
-// bf16 activations run on the tensor cores: mma.sync m16n8k16 bf16 x
-// bf16 -> f32. A block computes a 64 x 64 output tile and walks K 128 at
-// a time. At the serving step's M = 128 the grid has about one block per
-// SM, so the loop is bound by latency, not by the mma rate: the deep K
-// tile keeps many loads in flight, and 8 warps share the work -- each
-// warp owns a 32 x 32 piece of the tile (2 x 4 mma tiles) for one half of
-// every K tile, and the two halves are summed in shared memory at the
-// end. The x tile goes to shared memory as it is; the weight tile is
-// widened from int8 (or two nibbles) to bf16 on the way -- every value in
-// [-127, 127] is exact in bf16 -- and both reach the warps through
-// ldmatrix (the weight's through ldmatrix.trans, since it is stored
-// K-major like the payload). The next tile's global loads are issued
-// into registers before the current tile is multiplied. The per-column
-// scale is applied once in the epilogue: it is constant along K, so
-// (x @ w_q) * s is the same function as the reference's x @ (w_q * s),
-// rounded in another order (see ROADMAP C).
+// Bound. The serving step multiplies M = 128 rows (the ragged step's T;
+// 8 in a layer-scope burst's append) by the 7B projections. At 3.35 TB/s
+// and 989 TFLOP/s (bf16): q/k/v/o 128 x 4096 x 4096 int8 5.64 us (bytes),
+// int4 4.34 us (operations); gate/up 128 x 4096 x 11008 14.63 / 11.67 us;
+// down 128 x 11008 x 4096 14.62 / 11.67 us; the burst's 8 x 4096 x 4096
+// about 5.0 / 2.5 us (bytes); the fused int8 + int8-KV layer's k|v
+// 128 x 4096 x 8192 column slice about 10.9 us (bytes). int8 at M = 128
+// sits at the card's balance point; int4 is bound by the bf16 tensor-core
+// rate.
+//
+// bf16 activations (the serving path):
+//
+// - The weight is read from device memory once per call: a block covers
+//   all of the step's rows (M <= 128; a larger M grids over 128-row
+//   tiles) and 256 weight columns, so x is read by N / 256 column blocks
+//   (16 MB of L2 traffic at N = 4096, not the 64 MB of 64 x 64 tiles).
+// - A ring of 6-8 stages in dynamic shared memory takes the raw payload,
+//   int8 bytes or packed nibbles as they lie in device memory, beside the
+//   bf16 x tile: TMA copies (tensor maps in the 128-byte swizzle, zeros
+//   past every edge) completing on one mbarrier per stage, issued 4-7
+//   tiles ahead (16 KB of int8 or 8 KB of int4 payload and 16 KB of x a
+//   tile at M > 16: 96-144 KB in flight per SM, against the ~25 KB that
+//   25 GB/s per SM needs over ~1 us). Nothing passes through registers on
+//   the way, and no bf16 copy of the weight is written. (16-byte cp.async
+//   kept too little in flight per SM, and 1-D bulk copies of 256-byte rows
+//   queued one behind the other.)
+// - Each lane reads its operand bytes from the staged raw tile and widens
+//   them in registers right before its product, with integer bit
+//   operations exact for every value: an int8 pair (rows k, k+1 of one
+//   column) becomes a bf16 pair as (128 + (x & 127)) - (x < 0 ? 256 : 128),
+//   both terms built by prmt/lop3 and subtracted by one bf16x2 fma; a
+//   packed int4 byte already holds a K pair, widened as (128 + (x + 8)) -
+//   136. Columns are dealt to lanes so that a lane's bytes of a payload row
+//   are contiguous (one 32-bit shared load per row).
+// - M > 16: wgmma on the swapped product out^T = W^T x^T. The widened
+//   weight is the A operand from registers (the m16n8k16 A-fragment
+//   layout is wgmma's per warp) and x the B operand straight from the
+//   swizzled stage (n = 128 rows); two warpgroups of 128 weight columns
+//   (two m64 tiles) each. Two K steps are one commit group, their
+//   operands double buffered, so the next group widens while this one's
+//   products run; only a product defines the accumulators (anything else
+//   would make ptxas serialize every wgmma). M <= 16: mma.sync m16n8k16,
+//   x the A operand by ldmatrix, the widened weight the B fragment, 8
+//   warps of 16 rows x 32 columns.
+// - Enough blocks for every shape, summed in a fixed order: split-K over
+//   a thread-block cluster of S <= 8 blocks along K, S chosen per shape
+//   from the clusters the card holds at once (waves x (K tiles per block
+//   + a block's fixed cost)). Each block leaves its f32 partial tile in
+//   its own shared memory; after a cluster barrier, block r sums its slice
+//   of the tile over the S blocks' shared memory in rank order
+//   (distributed shared memory: no device-memory traffic, no atomics, no
+//   second launch), scales and rounds once. Two calls are bitwise equal.
+// - The per-column scale stays in the epilogue, after the sum: (x @ w_q)
+//   * s is the reference's x @ (w_q * s) rounded in another order (see
+//   ROADMAP C).
+//
+// Operands TMA cannot take (K % 8, a row stride % 16, or an unaligned
+// pointer) are staged element by element into the same layout.
 //
 // f32 activations take the dtype's own kernel on the CUDA cores: the same
-// function at f32 precision throughout, tiled more simply (a 64 x 64
-// tile, K 16 at a time, 256 threads with 4 x 4 outputs each).
-//
-// Tails of M, N and K are masked in the loads and the stores: nothing is
-// padded in device memory. 16-byte loads of x need K % 8 == 0 and 8-byte
-// loads of the weight N % 8 == 0 (with aligned pointers); the wrapper
-// says which hold and the kernel loads element by element otherwise.
-//
-// Bound: at the serving step's M = 128 the 7B projections are near the
-// card's balance point: the weight bytes (K*N, or K*N/2 for int4) over
-// 3.35 TB/s against 2*M*K*N FLOPs over 989 TFLOP/s. This first version
-// uses mma.sync without cp.async/TMA pipelining or split-K; wgmma, TMA
-// and split-K for small M are later work.
+// function at f32 precision throughout, tiled simply (a 64 x 64 tile, K
+// 16 at a time, 256 threads with 4 x 4 outputs each). It is on no
+// serving path.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -52,50 +92,68 @@ namespace {
 // bf16 activations: tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64, BN = 64, BK = 128;
-constexpr int kThreads = 256;
-constexpr int kAStride = BK + 8;   // bf16 per shared x row (pad: no conflicts)
-constexpr int kBStride = BN + 8;   // bf16 per shared weight row
+constexpr int kThreads = 256;   // 8 warps, two warpgroups
+constexpr int BK = 64;          // K per ring stage: one 128-byte x row
+constexpr int kMaxSplits = 8;   // the largest portable cluster
 
-__device__ __forceinline__ int nibble_lo(uint32_t b) {
-  const int v = b & 0xF;
-  return v > 7 ? v - 16 : v;
+// the split-count model's fixed cost of a block (start-up, the first
+// tile's latency, the split-K sum), in K tiles: timed on the H100
+constexpr int kBlockOverheadTiles = 8;
+
+// Tile geometry of one instantiation. SMALL (M <= 16): mma.sync, 8 warps
+// of one m16 tile x NT n8 tiles (32 columns); otherwise wgmma, two
+// warpgroups of 128
+// weight columns x 128 rows. Both stage tiles lie in TMA's 128-byte
+// swizzle: x as [M_BLK rows x 128 bytes], the payload as two 128-column
+// halves of [W_ROWS rows x 128 bytes].
+template <int BITS, bool SMALL>
+struct Cfg {
+  static constexpr int M_BLK = SMALL ? 16 : 128;
+  static constexpr int BN = 256;
+  static constexpr int NT = 4;   // mma.sync: n8 tiles per warp
+  static constexpr int X_BYTES = M_BLK * BK * 2;
+  static constexpr int W_ROWS = BITS == 8 ? BK : BK / 2;   // payload rows
+  static constexpr int W_HALF = W_ROWS * 128;
+  static constexpr int W_BYTES = 2 * W_HALF;
+  static constexpr int STAGE = X_BYTES + W_BYTES;
+  // wgmma refills a stage two tiles after its use (its products are
+  // asynchronous), mma.sync one: wgmma takes a deeper ring
+  static constexpr int BUDGET = SMALL ? 144000 : 200000;
+  static constexpr int STAGES = BUDGET / STAGE < 8 ? BUDGET / STAGE : 8;
+  static constexpr int AHEAD = SMALL ? STAGES - 1 : STAGES - 2;
+  static constexpr int P_PITCH = BN + 4;   // floats per partial row
+  static constexpr int P_BYTES = M_BLK * P_PITCH * 4;
+  static constexpr int RING = STAGES * STAGE;
+  // one mbarrier per stage after the ring (or the partial tile)
+  static constexpr int BARS = RING > P_BYTES ? RING : P_BYTES;
+  static constexpr int SMEM = BARS + 8 * STAGES + 1024;
+  static_assert(AHEAD >= 2, "at least two tiles in flight");
+  static_assert(X_BYTES % 1024 == 0 && W_HALF % 1024 == 0,
+                "every swizzled tile on a 1024-byte boundary");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ int nibble_hi(uint32_t b) {
-  const int v = (b >> 4) & 0xF;
-  return v > 7 ? v - 16 : v;
+// Byte b (< 128) of row r of a tile of 128-byte rows in the 128-byte
+// swizzle (16-byte chunk c at c ^ (r & 7)), as TMA writes it
+__device__ __forceinline__ int swz(int r, int b) {
+  return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
 }
 
-// eight small ints (one per byte of `lo`/`hi` words, or per value) -> one
-// 16-byte row segment of bf16
-__device__ __forceinline__ uint4 widen8(const int* v) {
-  uint4 r;
-  uint32_t* p = reinterpret_cast<uint32_t*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    __nv_bfloat162 h = __floats2bfloat162_rn((float)v[2 * i],
-                                             (float)v[2 * i + 1]);
-    p[i] = *reinterpret_cast<uint32_t*>(&h);
-  }
-  return r;
+// Byte (row r, column c) of a staged payload tile
+template <class C>
+__device__ __forceinline__ const unsigned char* w_at(const unsigned char* sw,
+                                                     int r, int c) {
+  return sw + (c >> 7) * C::W_HALF + swz(r, c & 127);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+      : "r"(smem_u32(p)));
 }
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
@@ -108,196 +166,612 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 8-element (16-byte) chunks of the x tile, and 8-byte chunks of the
-// weight tile's payload, per thread
-constexpr int kXChunks = BM * BK / 8 / kThreads;
-constexpr int kXRowChunks = BK / 8;
-constexpr int kWRowChunks = BN / 8;
-constexpr int kW8Chunks = BK * BN / 8 / kThreads;
-constexpr int kW4Chunks = BK / 2 * BN / 8 / kThreads;
-static_assert(BM * BK / 8 % kThreads == 0 && BK / 2 * BN / 8 % kThreads == 0,
-              "every thread loads whole chunks");
-static_assert(BK * kBStride * 2 >= 4 * 32 * 32 * 4,
-              "the K halves' sums fit in the weight tile's shared memory");
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
 
-// The global loads of one K tile, held in registers until the previous
-// tile's products are done.
-struct Staged {
-  uint4 a[kXChunks];    // x: 8-element chunks of its rows
-  uint2 b[kW8Chunks];   // weight: 8-byte chunks of payload rows
-};
+// a + b on bf16 pairs (exact here: small integers)
+__device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d) : "r"(a), "r"(0x3F803F80u), "r"(b));
+  return d;
+}
 
-__device__ __forceinline__ void load_x(Staged& s, const __nv_bfloat16* x,
-                                       int M, int K, int m0, int k0,
-                                       bool vec) {
-#pragma unroll
-  for (int i = 0; i < kXChunks; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int m = m0 + c / kXRowChunks, k = k0 + (c % kXRowChunks) * 8;
-    if (vec) {
-      s.a[i] = (m < M && k < K)
-                   ? *reinterpret_cast<const uint4*>(x + (size_t)m * K + k)
-                   : make_uint4(0, 0, 0, 0);
-    } else {
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&s.a[i]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        e[j] = (m < M && k + j < K) ? x[(size_t)m * K + k + j]
-                                    : __float2bfloat16(0.f);
+// byte j of `lo` (K row k) and byte j of `hi` (row k + 1), int8, as the
+// bf16 pair (k, k + 1): 0x4300 | (x & 127) is 128 + (x & 127), and
+// 0xC300 | (x & 128) is -128 or -256 by the sign bit
+__device__ __forceinline__ uint32_t widen_i8(uint32_t lo, uint32_t hi,
+                                             int j) {
+  const uint32_t d = prmt(lo, hi, j | (j << 4) | ((j + 4) << 8) |
+                                      ((j + 4) << 12));
+  return bf16x2_add((d & 0x007F007Fu) | 0x43004300u,
+                    (d & 0x00800080u) | 0xC300C300u);
+}
+
+// byte j of a packed int4 word whose nibbles are biased (x + 8, `b`) and
+// the same word shifted right by 4 (`s`), as the bf16 pair (low nibble,
+// high nibble) = K rows (2r, 2r + 1): 0x4300 | u is 128 + u, minus 136
+__device__ __forceinline__ uint32_t widen_i4(uint32_t b, uint32_t s, int j) {
+  const uint32_t d = prmt(b, s, j | (j << 4) | ((j + 4) << 8) |
+                                    ((j + 4) << 12));
+  return bf16x2_add((d & 0x000F000Fu) | 0x43004300u, 0xC308C308u);
+}
+
+// ---- TMA: tiles of a tensor map to shared memory, on an mbarrier ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// the one arrival of a phase, expecting `bytes` of copies
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+      ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+// box (c0, c1) of tensor map `map` to shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+      "r"(c1), "r"(bar) : "memory");
+}
+
+// One K tile into ring stage `st`: the x tile (rows m0.., K tile
+// `tile`) and the payload tile (payload rows tile * W_ROWS.., columns
+// n0 .. n0 + 256), each by TMA from thread 0 (x: one box of [M_BLK, 64];
+// payload: two boxes of [W_ROWS, 128]), completing on the stage's
+// mbarrier `bar`; TMA fills what lies past M, K, the payload rows and N
+// with zeros. vec_x / vec_w false (K % 8, ldw % 16 or a pointer's
+// alignment rule TMA out): that operand is stored element by element, in
+// the same swizzle, and the mbarrier counts no bytes for it.
+template <class C>
+__device__ __forceinline__ void load_tile(
+    unsigned char* st, uint32_t bar, const CUtensorMap* tmx,
+    const CUtensorMap* tmw, const __nv_bfloat16* __restrict__ x,
+    const int8_t* __restrict__ w, int M, int N, int K, int rows, int ldw,
+    int m0, int n0, int tile, int vec_x, int vec_w) {
+  unsigned char* sw = st + C::X_BYTES;
+  const int k0 = tile * BK, r0 = tile * C::W_ROWS;
+  if (threadIdx.x == 0) {
+    mbar_expect(bar, (vec_x ? C::X_BYTES : 0) + (vec_w ? C::W_BYTES : 0));
+    if (vec_x) tma_load(st, tmx, k0, m0, bar);
+    if (vec_w) {
+      tma_load(sw, tmw, n0, r0, bar);
+      tma_load(sw + C::W_HALF, tmw, n0 + 128, r0, bar);
+    }
+  }
+  if (!vec_x) {
+    for (int c = threadIdx.x; c < C::M_BLK * BK; c += kThreads) {
+      const int r = c / BK, k = c % BK;
+      const int m = m0 + r, kk = k0 + k;
+      *reinterpret_cast<__nv_bfloat16*>(st + swz(r, 2 * k)) =
+          m < M && kk < K ? x[(size_t)m * K + kk] : __float2bfloat16(0.f);
+    }
+  }
+  if (!vec_w) {
+    for (int c = threadIdx.x; c < C::W_ROWS * C::BN; c += kThreads) {
+      const int r = c / C::BN, col = c % C::BN;
+      const int row = r0 + r, n = n0 + col;
+      *const_cast<unsigned char*>(w_at<C>(sw, r, col)) =
+          row < rows && n < N ? (unsigned char)w[(size_t)row * ldw + n] : 0;
     }
   }
 }
 
-// rows: payload rows (K for int8, ceil(K/2) for int4); row0: the tile's
-// first payload row
-template <int BITS>
-__device__ __forceinline__ void load_w(Staged& s, const int8_t* w, int N,
-                                       int rows, int row0, int n0,
-                                       bool vec) {
-  constexpr int kChunks = BITS == 8 ? kW8Chunks : kW4Chunks;
+// mma.sync body (M <= 16), one staged tile: warp w's 16 rows x 32
+// columns, NT n8 tiles. Tile j's column g is the block's column
+// 32w + g * NT + j, so a lane's NT bytes of a payload row are contiguous.
+template <class C, int BITS>
+__device__ __forceinline__ void mma_tile(float (&acc)[C::NT][4],
+                                         const unsigned char* st, int warp,
+                                         int lane) {
+  static_assert(C::NT == 4, "one 32-bit word of payload per row");
+  const unsigned char* sw = st + C::X_BYTES;
+  const int g = lane >> 2, t = lane & 3;
+  const int col = warp * 32 + g * C::NT;
+  auto word = [&](int r) {
+    return *reinterpret_cast<const uint32_t*>(w_at<C>(sw, r, col));
+  };
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = row0 + c / kWRowChunks, n = n0 + (c % kWRowChunks) * 8;
-    if (vec) {
-      s.b[i] = (r < rows && n < N)
-                   ? *reinterpret_cast<const uint2*>(w + (size_t)r * N + n)
-                   : make_uint2(0, 0);
-    } else {
-      int8_t* e = reinterpret_cast<int8_t*>(&s.b[i]);
+  for (int ks = 0; ks < BK / 16; ++ks) {
+    uint32_t a[4];
+    ldsm_x4(a, st + swz(lane & 15, (ks * 16 + (lane >> 4) * 8) * 2));
+    uint32_t b[C::NT][2];
+    if (BITS == 8) {
+      // K rows ks*16 + 2t, +1 (b0) and +8, +9 (b1)
+      const int k = ks * 16 + 2 * t;
+      const uint32_t r0 = word(k), r1 = word(k + 1);
+      const uint32_t r8 = word(k + 8), r9 = word(k + 9);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        e[j] = (r < rows && n + j < N) ? w[(size_t)r * N + n + j] : 0;
-    }
-  }
-}
-
-template <int BITS>
-__device__ __forceinline__ void store_tile(const Staged& s,
-                                           __nv_bfloat16* sA,
-                                           __nv_bfloat16* sB) {
-#pragma unroll
-  for (int i = 0; i < kXChunks; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    *reinterpret_cast<uint4*>(sA + (c / kXRowChunks) * kAStride +
-                              (c % kXRowChunks) * 8) = s.a[i];
-  }
-  if (BITS == 8) {
-#pragma unroll
-    for (int i = 0; i < kW8Chunks; ++i) {
-      const int c = threadIdx.x + i * kThreads;
-      const int8_t* e = reinterpret_cast<const int8_t*>(&s.b[i]);
-      int v[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = e[j];
-      *reinterpret_cast<uint4*>(sB + (c / kWRowChunks) * kBStride +
-                                (c % kWRowChunks) * 8) = widen8(v);
-    }
-  } else {
-    // one packed row holds K rows 2r (low nibbles) and 2r + 1 (high)
-#pragma unroll
-    for (int i = 0; i < kW4Chunks; ++i) {
-      const int c = threadIdx.x + i * kThreads;
-      const uint8_t* e = reinterpret_cast<const uint8_t*>(&s.b[i]);
-      int lo[8], hi[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        lo[j] = nibble_lo(e[j]);
-        hi[j] = nibble_hi(e[j]);
+      for (int j = 0; j < C::NT; ++j) {
+        b[j][0] = widen_i8(r0, r1, j);
+        b[j][1] = widen_i8(r8, r9, j);
       }
-      __nv_bfloat16* row = sB + 2 * (c / kWRowChunks) * kBStride +
-                           (c % kWRowChunks) * 8;
-      *reinterpret_cast<uint4*>(row) = widen8(lo);
-      *reinterpret_cast<uint4*>(row + kBStride) = widen8(hi);
+    } else {
+      // packed rows ks*8 + t (K 2t, 2t+1) and + 4 (K 2t+8, 2t+9)
+      const uint32_t q0 = word(ks * 8 + t) ^ 0x88888888u;
+      const uint32_t q4 = word(ks * 8 + t + 4) ^ 0x88888888u;
+#pragma unroll
+      for (int j = 0; j < C::NT; ++j) {
+        b[j][0] = widen_i4(q0, q0 >> 4, j);
+        b[j][1] = widen_i4(q4, q4 >> 4, j);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j) mma_bf16(acc[j], a, b[j][0], b[j][1]);
+  }
+}
+
+// ---- wgmma (register A, shared-memory B) ----
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Pin the accumulators in place around a batch of wgmma: nothing the
+// compiler emits may define them while the batch is in flight (else
+// ptxas serializes every wgmma)
+__device__ __forceinline__ void fence_acc(float (&acc)[2][64]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[j][i])::"memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// K-major operand in the 128-byte swizzle: 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t swizzle128_desc(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d[64] = A (64 x 16, registers) . B (16 x 128, shared memory) + (acc ?
+// d : 0)
+__device__ __forceinline__ void wgmma_n128(float* d, const uint32_t* a,
+                                           uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+// wgmma body. The warp (w of its warpgroup) holds rows 16w .. 16w + 15
+// of two 64-row A tiles (j = 0, 1); A row 16w + g + 8h of tile j is the
+// block's column c0 + g * 4 + h * 2 + j, so a lane's four bytes of a
+// payload row are contiguous.
+
+// K steps per wgmma commit group (an even number of groups per tile keeps
+// the A double buffer alternating across tiles)
+constexpr int kStepsPerGroup = 2;
+
+// One staged tile, kStepsPerGroup K steps at a time: the lane widens
+// their A operands, then the warpgroup issues their products as one
+// commit group. A is double buffered: a group widens while the previous
+// group's products run. The block's first products overwrite the
+// (undefined) accumulators.
+template <class C, int BITS>
+__device__ __forceinline__ void wgmma_tile(float (&acc)[2][64],
+                                           const unsigned char* st, int c0,
+                                           int lane, bool first) {
+  constexpr int KPG = kStepsPerGroup;
+  static_assert((BK / 16) % (2 * KPG) == 0, "even groups per tile");
+  const unsigned char* sw = st + C::X_BYTES;
+  const uint32_t xs = smem_u32(st);
+  const int g = lane >> 2, t = lane & 3;
+  const int col = c0 + g * 4;
+  uint32_t a[2][KPG][2][4];
+#pragma unroll
+  for (int gi = 0; gi < BK / 16 / KPG; ++gi) {
+    uint32_t (&A)[KPG][2][4] = a[gi & 1];
+#pragma unroll
+    for (int u = 0; u < KPG; ++u) {
+      const int ks = gi * KPG + u;
+      if (BITS == 8) {
+        const int k = ks * 16 + 2 * t;
+        const uint32_t r0 =
+            *reinterpret_cast<const uint32_t*>(w_at<C>(sw, k, col));
+        const uint32_t r1 =
+            *reinterpret_cast<const uint32_t*>(w_at<C>(sw, k + 1, col));
+        const uint32_t r8 =
+            *reinterpret_cast<const uint32_t*>(w_at<C>(sw, k + 8, col));
+        const uint32_t r9 =
+            *reinterpret_cast<const uint32_t*>(w_at<C>(sw, k + 9, col));
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          A[u][j][0] = widen_i8(r0, r1, j);
+          A[u][j][1] = widen_i8(r0, r1, 2 + j);
+          A[u][j][2] = widen_i8(r8, r9, j);
+          A[u][j][3] = widen_i8(r8, r9, 2 + j);
+        }
+      } else {
+        const uint32_t q0 = *reinterpret_cast<const uint32_t*>(
+                                w_at<C>(sw, ks * 8 + t, col)) ^ 0x88888888u;
+        const uint32_t q4 = *reinterpret_cast<const uint32_t*>(
+                                w_at<C>(sw, ks * 8 + t + 4, col)) ^
+                            0x88888888u;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          A[u][j][0] = widen_i4(q0, q0 >> 4, j);
+          A[u][j][1] = widen_i4(q0, q0 >> 4, 2 + j);
+          A[u][j][2] = widen_i4(q4, q4 >> 4, j);
+          A[u][j][3] = widen_i4(q4, q4 >> 4, 2 + j);
+        }
+      }
+    }
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < KPG; ++u) {
+      const int ks = gi * KPG + u;
+      const uint64_t desc = swizzle128_desc(xs + ks * 32);
+      const int keep = !first || ks > 0;
+      wgmma_n128(acc[0], A[u][0], desc, keep);
+      wgmma_n128(acc[1], A[u][1], desc, keep);
+    }
+    wgmma_commit();
+    // the previous group is done with its A registers (at gi = 0: the
+    // tile before this one with its stage)
+    wgmma_wait<1>();
+    fence_acc(acc);
+  }
+}
+
+// The split-K sum: each block's f32 partial tile P [M_BLK, P_PITCH] lies
+// in its own shared memory; block `rank` of the S in the cluster sums its
+// slice of the tile (4-column chunks CH * rank / S ..) over the S blocks'
+// shared memory in rank order, scales, rounds once and stores. A thread's
+// chunks are kThreads apart, a multiple of a row's BN / 4: one column
+// chunk, whose scales `sc` it loaded early (reduce_scale). The S loads
+// of a chunk are issued together. vec_out: N % 4 == 0 with out and scale
+// aligned.
+template <class C>
+__device__ __forceinline__ int reduce_first(int rank, int S) {
+  return C::M_BLK * (C::BN / 4) * rank / S + (int)threadIdx.x;
+}
+
+template <class C>
+__device__ __forceinline__ float4 reduce_scale(
+    const float* __restrict__ scale, int N, int n0, int rank, int S,
+    int vec_out) {
+  const int n = n0 + (reduce_first<C>(rank, S) % (C::BN / 4)) * 4;
+  if (vec_out && n < N) return *reinterpret_cast<const float4*>(scale + n);
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = n + e < N ? scale[n + e] : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <class C>
+__device__ __forceinline__ void reduce_store(
+    cg::cluster_group& cluster, const float* P, float4 sc,
+    __nv_bfloat16* __restrict__ out, int M, int N, int m0, int n0,
+    int vec_out) {
+  const int S = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  constexpr int CPR = C::BN / 4;
+  constexpr int CH = C::M_BLK * CPR;
+  const int col = (reduce_first<C>(rank, S) % CPR) * 4, n = n0 + col;
+  if (n >= N) return;
+  const int c1 = CH * (rank + 1) / S;
+  for (int c = reduce_first<C>(rank, S); c < c1; c += kThreads) {
+    const int row = c / CPR, m = m0 + row;
+    if (m >= M) break;
+    const int off = row * C::P_PITCH + col;
+    float4 v[kMaxSplits];
+#pragma unroll
+    for (int q = 0; q < kMaxSplits; ++q)
+      if (q < S)
+        v[q] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(P, q) + off);
+    float4 s = v[0];
+#pragma unroll
+    for (int q = 1; q < kMaxSplits; ++q)
+      if (q < S) {
+        s.x += v[q].x;
+        s.y += v[q].y;
+        s.z += v[q].z;
+        s.w += v[q].w;
+      }
+    __nv_bfloat16* o = out + (size_t)m * N + n;
+    if (vec_out) {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(s.x * sc.x, s.y * sc.y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(s.z * sc.z, s.w * sc.w);
+      uint2 u;
+      u.x = *reinterpret_cast<uint32_t*>(&lo);
+      u.y = *reinterpret_cast<uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(o) = u;
+    } else {
+      const float r[4] = {s.x * sc.x, s.y * sc.y, s.z * sc.z, s.w * sc.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n + e < N) o[e] = __float2bfloat16(r[e]);
     }
   }
 }
 
-template <int BITS>
-__global__ void __launch_bounds__(kThreads)
-dequant_matmul_bf16(const __nv_bfloat16* __restrict__ x,
+// grid (ceil(N / BN), ceil(M / M_BLK), S), clusters (1, 1, S): block z
+// takes K tiles [k_tiles * z / S, k_tiles * (z + 1) / S)
+template <int BITS, bool SMALL>
+__global__ void __launch_bounds__(kThreads, 1)
+dequant_matmul_bf16(const __grid_constant__ CUtensorMap tmx,
+                    const __grid_constant__ CUtensorMap tmw,
+                    const __nv_bfloat16* __restrict__ x,
                     const int8_t* __restrict__ w,
                     const float* __restrict__ scale,
                     __nv_bfloat16* __restrict__ out, int M, int N, int K,
-                    int rows, int vec_x, int vec_w) {
-  __shared__ __align__(16) __nv_bfloat16 sA[BM * kAStride];
-  __shared__ __align__(16) __nv_bfloat16 sB[BK * kBStride];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+                    int rows, int ldw, int vec_x, int vec_w, int vec_out) {
+  using C = Cfg<BITS, SMALL>;
+  constexpr int ST = C::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = gridDim.z, z = blockIdx.z;
+  const int n0 = blockIdx.x * C::BN, m0 = blockIdx.y * C::M_BLK;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int kg = warp >> 2;   // which half of every K tile the warp takes
-  const int wm = ((warp & 3) >> 1) * 32, wn = (warp & 1) * 32;
-  constexpr int kRowsPerTile = BITS == 8 ? BK : BK / 2;
+  const int k_tiles = (K + BK - 1) / BK;
+  const int kt0 = k_tiles * z / S;
+  const int n_tiles = k_tiles * (z + 1) / S - kt0;
+  const float4 sc = reduce_scale<C>(scale, N, n0, z, S, vec_out);
 
-  float acc[2][4][4];
+  // mma.sync: n8 tiles x 4; wgmma: two m64 tiles x 64. wgmma: the
+  // block's first product defines the accumulators (any other definition
+  // inside its pipeline makes ptxas serialize every wgmma); a block with
+  // no K tile stores zeros
+  std::conditional_t<SMALL, float[C::NT][4], float[2][64]> acc;
+  if constexpr (SMALL) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < C::NT; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int n_tiles = (K + BK - 1) / BK;
-  Staged st;
-  load_x(st, x, M, K, m0, 0, vec_x);
-  load_w<BITS>(st, w, N, rows, 0, n0, vec_w);
-  for (int t = 0; t < n_tiles; ++t) {
-    store_tile<BITS>(st, sA, sB);
-    __syncthreads();
-    if (t + 1 < n_tiles) {   // next tile's loads in flight during the mmas
-      load_x(st, x, M, K, m0, (t + 1) * BK, vec_x);
-      load_w<BITS>(st, w, N, rows, (t + 1) * kRowsPerTile, n0, vec_w);
-    }
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      const int kk = kg * (BK / 2) + ks * 16;
-      uint32_t a[2][4], b[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4(a[mi], sA + (wm + mi * 16 + (lane & 15)) * kAStride + kk +
-                           (lane >> 4) * 8);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-        ldsm_x4_trans(b[nj], sB + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                      kBStride +
-                                  wn + nj * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], a[mi], b[ni >> 1][(ni & 1) * 2],
-                   b[ni >> 1][(ni & 1) * 2 + 1]);
-    }
-    __syncthreads();
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   }
+  // wgmma: the warp's first column
+  const int c0 = (warp >> 2) * 128 + (warp & 3) * 32;
 
-  // the second K half's sums join the first's through shared memory
-  // (the weight tile's, free after the loop's last barrier)
-  float* red = reinterpret_cast<float*>(sB);
-  float* mine = red + (warp & 3) * 32 * 32 + lane;
-  if (kg == 1) {
+  const uint32_t bars = smem_u32(smem + C::BARS);
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) mine[i * 32] = (&acc[0][0][0])[i];
+    for (int s = 0; s < ST; ++s) mbar_init(bars + 8 * s);
+    mbar_init_fence();
   }
   __syncthreads();
-  if (kg == 1) return;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) (&acc[0][0][0])[i] += mine[i * 32];
+  for (int s = 0; s < C::AHEAD; ++s)
+    if (s < n_tiles)
+      load_tile<C>(smem + s * C::STAGE, bars + 8 * s, &tmx, &tmw, x, w, M,
+                   N, K, rows, ldw, m0, n0, kt0 + s, vec_x, vec_w);
+  for (int i = 0; i < n_tiles; ++i) {
+    // element-wise stores of x (the unaligned path) are read by wgmma
+    // through the async proxy: fenced before the barrier publishing them
+    if constexpr (!SMALL) fence_proxy_async();
+    // every warp is done with the stage refilled next (mma.sync: tile
+    // i - 1's; wgmma: tile i - 2's, its last products waited for in tile
+    // i - 1), and the element-wise stores of tile i are visible
+    __syncthreads();
+    const int nx = i + C::AHEAD;
+    if (nx < n_tiles)
+      load_tile<C>(smem + (nx % ST) * C::STAGE, bars + 8 * (nx % ST), &tmx,
+                   &tmw, x, w, M, N, K, rows, ldw, m0, n0, kt0 + nx, vec_x,
+                   vec_w);
+    mbar_wait(bars + 8 * (i % ST), (i / ST) & 1);   // tile i landed
+    const unsigned char* st = smem + (i % ST) * C::STAGE;
+    if constexpr (SMALL)
+      mma_tile<C, BITS>(acc, st, warp, lane);
+    else
+      wgmma_tile<C, BITS>(acc, st, c0, lane, i == 0);
+  }
+  if constexpr (!SMALL) {
+    wgmma_wait<0>();
+    fence_acc(acc);
+  }
+  __syncthreads();   // the ring is free: it holds the partial tile now
 
-  // epilogue: the per-column scale, then one rounding to bf16
+  float* P = reinterpret_cast<float*>(smem);
+  const int g = lane >> 2, t = lane & 3;
+  if constexpr (SMALL) {
+    // n8 tiles j and j + 1 hold neighbouring columns
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int r0 = m0 + wm + mi * 16 + (lane >> 2);
-      const int c0 = n0 + wn + ni * 8 + (lane & 3) * 2;
+    for (int j = 0; j < C::NT; j += 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = r0 + (e >> 1) * 8, c = c0 + (e & 1);
-        if (r < M && c < N)
-          out[(size_t)r * N + c] = __float2bfloat16(acc[mi][ni][e] * scale[c]);
+        const int row = g + (e >> 1) * 8;
+        const int col = warp * 32 + (2 * t + (e & 1)) * C::NT + j;
+        *reinterpret_cast<float2*>(P + row * C::P_PITCH + col) =
+            make_float2(acc[j][e], acc[j + 1][e]);
+      }
+  } else {
+    // tile j, element 4i + e: A row 16w + g + 8 (e >> 1) (the block's
+    // column c0 + 4g + 2 (e >> 1) + j), x row 8i + 2t + (e & 1); tiles 0
+    // and 1 hold neighbouring columns
+    const bool any = n_tiles > 0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 8 * i + 2 * t + (e & 1);
+        const int col = c0 + g * 4 + (e >> 1) * 2;
+        *reinterpret_cast<float2*>(P + row * C::P_PITCH + col) =
+            any ? make_float2(acc[0][4 * i + e], acc[1][4 * i + e])
+                : make_float2(0.f, 0.f);
+      }
+  }
+  cluster.sync();   // every block's partial tile is written
+  reduce_store<C>(cluster, P, sc, out, M, N, m0, n0, vec_out);
+  cluster.sync();   // no block leaves while its tile is being read
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (nothing
+// links against libcuda); null where the driver lacks it
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// A 2-D tensor map in the 128-byte swizzle: `inner` x `outer` elements,
+// rows `stride` bytes apart, boxes of box0 x box1; zeros out of bounds
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+               int inner, int outer, long long stride, int box0, int box1) {
+  PFN_cuTensorMapEncodeTiled_v12000 enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride};
+  const cuuint32_t box[2] = {(cuuint32_t)box0, (cuuint32_t)box1};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch plumbing of one instantiation: shared-memory opt-in, how many
+// clusters of S blocks the card holds at once, and the split count.
+template <int BITS, bool SMALL>
+struct Launcher {
+  using C = Cfg<BITS, SMALL>;
+
+  static cudaError_t opt_in() {
+    static cudaError_t err = cudaFuncSetAttribute(
+        dequant_matmul_bf16<BITS, SMALL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    return err;
+  }
+
+  static cudaLaunchConfig_t config(dim3 grid, int s, cudaStream_t stream,
+                                   cudaLaunchAttribute* attr) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = C::SMEM;
+    cfg.stream = stream;
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = 1;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+  }
+
+  // clusters of s blocks resident at once (0 if none fit)
+  static int clusters(int s) {
+    static int cache[kMaxSplits + 1] = {};
+    if (cache[s] == 0) {
+      cudaLaunchAttribute attr;
+      cudaLaunchConfig_t cfg = config(dim3(1, 1, s), s, 0, &attr);
+      int n = 0;
+      if (opt_in() != cudaSuccess ||
+          cudaOccupancyMaxActiveClusters(
+              &n, dequant_matmul_bf16<BITS, SMALL>, &cfg) !=
+              cudaSuccess)
+        n = 0;
+      cache[s] = n > 0 ? n : -1;
+    }
+    return cache[s] > 0 ? cache[s] : 0;
+  }
+
+  // The split count with the least of waves of resident clusters times
+  // each block's K tiles and fixed cost (the smaller on a tie); each
+  // block keeps >= 2 tiles.
+  static int splits(int M, int N, int K) {
+    const long long base = (long long)((N + C::BN - 1) / C::BN) *
+                           ((M + C::M_BLK - 1) / C::M_BLK);
+    const int k_tiles = (K + BK - 1) / BK;
+    int best = 1;
+    long long best_cost = -1;
+    for (int s = 1; s <= kMaxSplits; ++s) {
+      if (s > 1 && k_tiles < 2 * s) break;
+      const int act = clusters(s);
+      if (act == 0) continue;
+      const long long cost = (base + act - 1) / act *
+                             ((k_tiles + s - 1) / s + kBlockOverheadTiles);
+      if (best_cost < 0 || cost < best_cost) {
+        best_cost = cost;
+        best = s;
       }
     }
-}
+    return best;
+  }
+
+  static int launch(const void* x, const int8_t* w, const float* scale,
+                    void* out, int M, int N, int K, int rows, int ldw,
+                    int vec_x, int vec_w, int vec_out, int s,
+                    cudaStream_t stream) {
+    cudaError_t err = opt_in();
+    if (err != cudaSuccess) return (int)err;
+    if (s <= 0) s = splits(M, N, K);
+    if (s > kMaxSplits) return (int)cudaErrorInvalidValue;
+    CUtensorMap tmx = {}, tmw = {};
+    if (vec_x && !encode_2d(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M,
+                            2LL * K, BK, C::M_BLK))
+      return (int)cudaErrorNotSupported;
+    if (vec_w && !encode_2d(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, rows,
+                            ldw, 128, C::W_ROWS))
+      return (int)cudaErrorNotSupported;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = config(
+        dim3((N + C::BN - 1) / C::BN, (M + C::M_BLK - 1) / C::M_BLK, s), s,
+        stream, &attr);
+    err = cudaLaunchKernelEx(
+        &cfg, dequant_matmul_bf16<BITS, SMALL>, tmx, tmw,
+        static_cast<const __nv_bfloat16*>(x), w, scale,
+        static_cast<__nv_bfloat16*>(out), M, N, K, rows, ldw, vec_x, vec_w,
+        vec_out);
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  }
+};
 
 // ---------------------------------------------------------------------------
 // f32 activations: CUDA cores
@@ -306,11 +780,21 @@ dequant_matmul_bf16(const __nv_bfloat16* __restrict__ x,
 constexpr int FM = 64, FN = 64, FK = 16;
 constexpr int kFThreads = 256;
 
+__device__ __forceinline__ int nibble_lo(uint32_t b) {
+  const int v = b & 0xF;
+  return v > 7 ? v - 16 : v;
+}
+
+__device__ __forceinline__ int nibble_hi(uint32_t b) {
+  const int v = (b >> 4) & 0xF;
+  return v > 7 ? v - 16 : v;
+}
+
 template <int BITS>
 __global__ void __launch_bounds__(kFThreads)
 dequant_matmul_f32(const float* __restrict__ x, const int8_t* __restrict__ w,
                    const float* __restrict__ scale, float* __restrict__ out,
-                   int M, int N, int K) {
+                   int M, int N, int K, int ldw) {
   __shared__ float sA[FK][FM + 4];   // x tile, K-major
   __shared__ float sB[FK][FN + 4];   // dequantized weight tile (no scale)
   const int m0 = blockIdx.x * FM, n0 = blockIdx.y * FN;
@@ -337,9 +821,9 @@ dequant_matmul_f32(const float* __restrict__ x, const int8_t* __restrict__ w,
       int v = 0;
       if (k < K && n < N) {
         if (BITS == 8) {
-          v = w[(size_t)k * N + n];
+          v = w[(size_t)k * ldw + n];
         } else {
-          const uint32_t b = (uint8_t)w[(size_t)(k >> 1) * N + n];
+          const uint32_t b = (uint8_t)w[(size_t)(k >> 1) * ldw + n];
           v = (k & 1) ? nibble_hi(b) : nibble_lo(b);
         }
       }
@@ -370,41 +854,67 @@ dequant_matmul_f32(const float* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 template <int BITS>
-int launch(int dtype, const void* x, const int8_t* w, const float* scale,
-           void* out, int M, int N, int K, int rows, int vec_x, int vec_w,
-           cudaStream_t stream) {
-  if (dtype == 1) {
-    dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-    dequant_matmul_bf16<BITS><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), w, scale,
-        static_cast<__nv_bfloat16*>(out), M, N, K, rows, vec_x, vec_w);
-  } else {
-    dim3 grid((M + FM - 1) / FM, (N + FN - 1) / FN);
-    dequant_matmul_f32<BITS><<<grid, kFThreads, 0, stream>>>(
-        static_cast<const float*>(x), w, scale, static_cast<float*>(out), M,
-        N, K);
-  }
-  return (int)cudaGetLastError();
+int launch_bf16(const void* x, const int8_t* w, const float* scale,
+                void* out, int M, int N, int K, int rows, int ldw, int vec_x,
+                int vec_w, int vec_out, int splits, cudaStream_t stream) {
+  return M <= 16 ? Launcher<BITS, true>::launch(x, w, scale, out, M, N, K,
+                                               rows, ldw, vec_x, vec_w,
+                                               vec_out, splits, stream)
+                 : Launcher<BITS, false>::launch(x, w, scale, out, M, N, K,
+                                                rows, ldw, vec_x, vec_w,
+                                                vec_out, splits, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x and out); bits: 8 or 4. w holds
-// `rows` payload rows of N bytes (K for int8, ceil(K/2) for int4).
-// vec_x: K % 8 == 0 and x 16-byte aligned; vec_w: N % 8 == 0 and w
-// 8-byte aligned. Returns cudaGetLastError() after the launch (0 =
+// `rows` payload rows (K for int8, ceil(K/2) for int4) of N bytes at row
+// stride ldw (>= N). vec_x: K % 8 == 0 and x 16-byte aligned; vec_w:
+// ldw % 16 == 0 and w 16-byte aligned (both: TMA's rules; else those
+// operands are staged element by element); vec_out: N % 4 == 0, out 8-
+// and scale 16-byte aligned. splits: the bf16 kernel's K split count (0:
+// its own choice, 1-8). Returns the CUDA error of the launch (0 =
 // success); the launch is asynchronous on `stream`.
 extern "C" int dequant_matmul(int dtype, int bits, const void* x,
                               const void* w, const void* scale, void* out,
-                              int M, int N, int K, int rows, int vec_x,
-                              int vec_w, void* stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+                              int M, int N, int K, int rows, int ldw,
+                              int vec_x, int vec_w, int vec_out, int splits,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* wq = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scale);
+  if (bits != 8 && bits != 4) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    return bits == 8 ? launch_bf16<8>(x, wq, sc, out, M, N, K, rows, ldw,
+                                      vec_x, vec_w, vec_out, splits, s)
+                     : launch_bf16<4>(x, wq, sc, out, M, N, K, rows, ldw,
+                                      vec_x, vec_w, vec_out, splits, s);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  dim3 grid((M + FM - 1) / FM, (N + FN - 1) / FN);
   if (bits == 8)
-    return launch<8>(dtype, x, wq, sc, out, M, N, K, rows, vec_x, vec_w, s);
-  if (bits == 4)
-    return launch<4>(dtype, x, wq, sc, out, M, N, K, rows, vec_x, vec_w, s);
-  return (int)cudaErrorInvalidValue;
+    dequant_matmul_f32<8><<<grid, kFThreads, 0, s>>>(
+        static_cast<const float*>(x), wq, sc, static_cast<float*>(out), M, N,
+        K, ldw);
+  else
+    dequant_matmul_f32<4><<<grid, kFThreads, 0, s>>>(
+        static_cast<const float*>(x), wq, sc, static_cast<float*>(out), M, N,
+        K, ldw);
+  return (int)cudaGetLastError();
+}
+
+// The K split count the bf16 kernel takes at this shape on this card.
+extern "C" int dequant_matmul_splits(int bits, int M, int N, int K) {
+  if (M <= 16)
+    return bits == 8 ? Launcher<8, true>::splits(M, N, K)
+                     : Launcher<4, true>::splits(M, N, K);
+  return bits == 8 ? Launcher<8, false>::splits(M, N, K)
+                   : Launcher<4, false>::splits(M, N, K);
+}
+
+// Dynamic shared memory of one block of the bf16 kernel (small: M <= 16).
+extern "C" int dequant_matmul_smem_bytes(int bits, int small) {
+  if (small)
+    return bits == 8 ? Cfg<8, true>::SMEM : Cfg<4, true>::SMEM;
+  return bits == 8 ? Cfg<8, false>::SMEM : Cfg<4, false>::SMEM;
 }

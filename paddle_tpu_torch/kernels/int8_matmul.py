@@ -9,8 +9,13 @@ implementations of one function:
 - :func:`dequant_matmul_reference`, plain PyTorch: dequantize to f32,
   multiply in f32, cast (the reference's ``_reference`` exactly);
 - the CUDA kernel ``csrc/int8_matmul.cu`` (see its header): tensor cores
-  for bf16 activations, CUDA cores for f32, the weight widened tile by
-  tile in shared memory, the scale applied in the epilogue.
+  for bf16 activations (wgmma, or mma.sync at M <= 16), the raw payload
+  staged by a TMA ring and widened in registers, split-K over a
+  thread-block cluster summed in a fixed order; CUDA cores for f32; the
+  scale applied in the epilogue.
+
+The payload may be a column slice of a wider weight (unit column
+stride, row stride >= N): the kernel reads it in place.
 
 :func:`dequant_matmul` chooses by where x lies: a CPU tensor runs the
 plain version, a CUDA tensor launches the kernel or raises.
@@ -42,8 +47,9 @@ def dequant_matmul(x, w_q, scale, *, rows=None, bits=8):
     """``x @ dequant(w_q)`` with per-out-channel scales.
 
     x: [..., K] float; w_q: [K, N] int8 (bits=8) or nibble-packed
-    [ceil(K/2), N] int8 (bits=4); scale: N float32 values. Returns [...,
-    N] in x's dtype.
+    [ceil(K/2), N] int8 (bits=4), unit column stride (a column slice of
+    a wider payload is read in place); scale: N float32 values. Returns
+    [..., N] in x's dtype.
     """
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
@@ -64,7 +70,9 @@ def dequant_matmul(x, w_q, scale, *, rows=None, bits=8):
     return out.reshape(lead + (n,))
 
 
-def _launch_cuda(x2, w_q, scale, rows, bits):
+def _launch_cuda(x2, w_q, scale, rows, bits, splits=0):
+    """Launch the kernel. ``splits``, the bf16 kernel's K split count (0:
+    its own choice), is for timing the alternatives side by side."""
     m, k = x2.shape
     n = w_q.shape[1]
     if x2.dtype not in _DTYPE_CODE:
@@ -84,9 +92,13 @@ def _launch_cuda(x2, w_q, scale, rows, bits):
     if w_q.shape[0] != want_rows:
         raise ValueError(f"int{bits} weight of {rows} rows must have "
                          f"{want_rows} payload rows, got {w_q.shape[0]}")
-    if not (x2.is_contiguous() and w_q.is_contiguous()
-            and scale.is_contiguous()):
-        raise ValueError("dequant_matmul kernel needs contiguous tensors")
+    if not (x2.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("dequant_matmul kernel needs contiguous x and "
+                         "scale")
+    ldw = w_q.stride(0) if w_q.shape[0] > 1 else n
+    if n > 1 and w_q.stride(1) != 1 or ldw < n:
+        raise ValueError(f"w_q must have unit column stride and a row "
+                         f"stride >= N = {n}, got strides {w_q.stride()}")
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     if m == 0 or n == 0:
         return out
@@ -94,16 +106,24 @@ def _launch_cuda(x2, w_q, scale, rows, bits):
         return out.zero_()
     vec_x = int(x2.dtype == torch.bfloat16 and k % 8 == 0
                 and x2.data_ptr() % 16 == 0)
-    vec_w = int(n % 8 == 0 and w_q.data_ptr() % 8 == 0)
+    vec_w = int(ldw % 16 == 0 and w_q.data_ptr() % 16 == 0)
+    vec_out = int(n % 4 == 0 and out.data_ptr() % 8 == 0
+                  and scale.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     err = _library().dequant_matmul(
         _DTYPE_CODE[x2.dtype], bits, x2.data_ptr(), w_q.data_ptr(),
-        scale.data_ptr(), out.data_ptr(), m, n, k, w_q.shape[0], vec_x,
-        vec_w, stream)
+        scale.data_ptr(), out.data_ptr(), m, n, k, w_q.shape[0], ldw, vec_x,
+        vec_w, vec_out, splits, stream)
     if err != 0:
         raise RuntimeError(f"dequant_matmul launch failed: CUDA error {err}")
     LAUNCHES["int8_matmul" if bits == 8 else "int4_matmul"] += 1
     return out
+
+
+def kernel_splits(bits, m, n, k):
+    """The K split count (thread blocks per cluster) the bf16 kernel
+    takes for an ``[m, k] @ [k, n]`` call on the current card."""
+    return _library().dequant_matmul_splits(bits, m, n, k)
 
 
 def _library():
@@ -111,9 +131,13 @@ def _library():
     lib = load("int8_matmul")
     if lib.dequant_matmul.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dequant_matmul.argtypes = [i, i] + [p] * 4 + [i] * 6 + [p]
+        lib.dequant_matmul.argtypes = [i, i] + [p] * 4 + [i] * 9 + [p]
         lib.dequant_matmul.restype = i
+        lib.dequant_matmul_splits.argtypes = [i] * 4
+        lib.dequant_matmul_splits.restype = i
+        lib.dequant_matmul_smem_bytes.argtypes = [i] * 2
+        lib.dequant_matmul_smem_bytes.restype = i
     return lib
 
 
-__all__ = ["dequant_matmul", "dequant_matmul_reference"]
+__all__ = ["dequant_matmul", "dequant_matmul_reference", "kernel_splits"]

@@ -186,13 +186,14 @@ def rope_apply(x, cos, sin):
 
 def _slice_qkv(fused):
     """``sl(lo, hi)``: columns ``lo:hi`` of the fused q|k|v weight as a
-    weight of their own (int8: a contiguous payload with its scales)."""
+    weight of their own, a view of the fused one (int8: the payload's
+    column slice, read in place by the dequant-matmul, and its scales)."""
     w = fused["qkv"]
     if isinstance(w, QuantizedWeight):
         def sl(lo, hi):
-            return QuantizedWeight(w.qdata[:, lo:hi].contiguous(),
-                                   w.scale.reshape(-1)[lo:hi].contiguous(),
-                                   w.bits, w.rows)
+            return QuantizedWeight(w.qdata[:, lo:hi],
+                                   w.scale.reshape(-1)[lo:hi], w.bits,
+                                   w.rows)
         return sl
 
     def sl(lo, hi):
@@ -277,15 +278,15 @@ def fused_prefill_layer(fused, h, Kp, Vp, tbls, pre, q_starts, q_lens,
         raise ValueError(f"fused_prefill_layer runs on cuda or cpu tensors, "
                          f"got {h.device}")
     if quant_kv:
-        # the append first, outside the kernel: k/v off column slices of
-        # the fused weight (exact), roped, then the caller's append
+        # the append first, outside the kernel: k|v in one projection off
+        # the fused weight's adjacent k and v columns (exact), roped, then
+        # the caller's append
         from ..models.generation import _rms_norm, _wmat
         T = h.shape[1]
-        sl = _slice_qkv(fused)
         x = _rms_norm(h, fused["ln1"], eps)
-        k = _wmat(x, sl(H * dh, (H + Hkv) * dh)).reshape(1, T, Hkv, dh)
-        v = _wmat(x, sl((H + Hkv) * dh, (H + 2 * Hkv) * dh)) \
-            .reshape(1, T, Hkv, dh)
+        kv = _wmat(x, _slice_qkv(fused)(H * dh, (H + 2 * Hkv) * dh))
+        k = kv[..., :Hkv * dh].reshape(1, T, Hkv, dh)
+        v = kv[..., Hkv * dh:].reshape(1, T, Hkv, dh)
         k = rope_apply(k, pre.cos, pre.sin)
         Kp, k_scales, Vp, v_scales = quant_append_fn(
             Kp, k_scales, Vp, v_scales, k[0].transpose(0, 1),

@@ -237,8 +237,10 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
 #: outputs may round one or two bf16 ulps apart
 MATMUL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
-#: (K, N): a 7B projection, odd K with a ragged N, an N below one tile
-MATMUL_SHAPES = [(4096, 4096), (1023, 200), (257, 40)]
+#: (K, N): the 7B projections (q/k/v/o, gate/up, down), odd K with a
+#: ragged N, an N below one tile
+MATMUL_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (1023, 200),
+                 (257, 40)]
 
 
 def _quantized(k, n, bits, dev, seed=0):
@@ -254,7 +256,7 @@ def _quantized(k, n, bits, dev, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("m", [1, 8, 128])
+@pytest.mark.parametrize("m", [1, 8, 128, 200])
 @pytest.mark.parametrize("shape", MATMUL_SHAPES,
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_dequant_matmul_kernel_matches_plain_version(cuda, shape, m, bits,
@@ -290,9 +292,59 @@ def test_dequant_matmul_rejects_what_it_does_not_take(cuda):
         tmm.dequant_matmul(x, wq, sc[:-1])
     with pytest.raises(ValueError, match="contiguous"):
         tmm.dequant_matmul(torch.zeros(64, 4, device=cuda).t(), wq, sc)
+    with pytest.raises(ValueError, match="unit column stride"):
+        tmm.dequant_matmul(x, wq.t().contiguous().t(), sc)
     with pytest.raises(ValueError, match="payload rows"):
         tmm.dequant_matmul(x, wq, sc, rows=64, bits=4)
     assert LAUNCHES["int4_matmul"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [8, 128])
+def test_dequant_matmul_reads_a_column_slice_in_place(cuda, m, bits):
+    """The k|v columns of a fused q|k|v payload (row stride 3 x 512, the
+    fused int8 + int8-KV layer's slice at a small width): the kernel reads
+    the view in place, bitwise as it reads a contiguous copy of it, and
+    within the bf16 tolerance of the plain version."""
+    from paddle_tpu_torch.kernels import int8_matmul as tmm
+    k, width, lo = 512, 3 * 512, 512
+    wq, sc = _quantized(k, width, bits, cuda, seed=m)
+    view, view_sc = wq[:, lo:], sc[lo:]
+    assert view.stride() == (width, 1)
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)) \
+        .to(cuda, torch.bfloat16)
+    reset_launch_counts()
+    got = tmm.dequant_matmul(x, view, view_sc, rows=k, bits=bits)
+    copy = tmm.dequant_matmul(x, view.contiguous(), view_sc.contiguous(),
+                              rows=k, bits=bits)
+    torch.cuda.synchronize()
+    assert LAUNCHES[f"int{bits}_matmul"] == 2
+    assert torch.equal(got, copy)
+    want = tmm.dequant_matmul_reference(x, view, view_sc, k, bits)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= MATMUL_TOL[torch.bfloat16] * max(
+        1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [8, 128])
+@pytest.mark.parametrize("shape", [(4096, 4096), (11008, 4096)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_dequant_matmul_two_calls_bitwise_equal(cuda, shape, m, bits):
+    """The split-K partials are summed in a fixed order (no atomics): two
+    calls give the same bits."""
+    from paddle_tpu_torch.kernels import int8_matmul as tmm
+    k, n = shape
+    wq, sc = _quantized(k, n, bits, cuda, seed=k + m)
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(m)) \
+        .to(cuda, torch.bfloat16)
+    first = tmm.dequant_matmul(x, wq, sc, rows=k, bits=bits)
+    second = tmm.dequant_matmul(x, wq, sc, rows=k, bits=bits)
+    torch.cuda.synchronize()
+    assert tmm.kernel_splits(bits, m, n, k) > 1
+    assert torch.equal(first, second)
 
 
 def _int8_pools(args, seed=0):
@@ -993,7 +1045,9 @@ def test_prefill_megakernel_matches_plain_version(cuda, contract, heads,
                                           k_scales=ks, v_scales=vs, **kw)
             torch.cuda.synchronize()
             assert LAUNCHES["prefill_megakernel"] == 1
-            assert sum(LAUNCHES.values()) == 1 + (2 * quant_w * quant_kv)
+            # int8 weights over an int8 pool: one k|v projection outside
+            assert sum(LAUNCHES.values()) == 1 + (quant_w * quant_kv)
+            assert LAUNCHES["int8_matmul"] == quant_w * quant_kv
         else:
             out = pmk._reference_prefill_layer(
                 fused[0], h, kp, vp, *meta, num_kv_heads=heads[1],

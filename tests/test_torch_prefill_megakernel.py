@@ -136,6 +136,42 @@ def test_fuse_layer_weights_byte_identical(quant_w):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+@pytest.mark.parametrize("quant_w", [False, True], ids=["fp", "int8"])
+def test_slice_qkv_reads_the_fused_weight_in_place(quant_w):
+    """The k|v columns the fused int8 + int8-KV layer projects outside the
+    kernel are a view of the fused q|k|v weight (no copy), and projecting
+    them in one call equals the reference's k and v columns of the fused
+    weight (1e-5 of the largest value, f32)."""
+    H, Hkv, dh = 4, 2, 16
+    lo, hi = H * dh, (H + 2 * Hkv) * dh
+    jl, tl = _layers(_fixture()[0], quant_w)
+    jf, tf = jpmk.fuse_layer_weights(jl), tpmk.fuse_layer_weights(tl)
+    kv = tpmk._slice_qkv(tf)(lo, hi)
+    fused = tf["qkv"]
+    if quant_w:
+        base, view = fused.qdata, kv.qdata
+        assert kv.scale.untyped_storage().data_ptr() == \
+            fused.scale.untyped_storage().data_ptr()
+        np.testing.assert_array_equal(kv.scale.numpy(),
+                                      np.asarray(jf["qkv"].scale)
+                                      .reshape(-1)[lo:hi])
+        want_w = np.asarray(jf["qkv"].qdata, np.float32)[:, lo:hi] * \
+            np.asarray(jf["qkv"].scale).reshape(1, -1)[:, lo:hi]
+    else:
+        base, view = fused, kv
+        want_w = np.asarray(jf["qkv"])[:, lo:hi]
+    assert view.untyped_storage().data_ptr() == \
+        base.untyped_storage().data_ptr()
+    assert view.shape == (base.shape[0], hi - lo)
+    assert view.stride() == (base.shape[1], 1) and not view.is_contiguous()
+    x = np.random.default_rng(1).standard_normal((5, base.shape[0])) \
+        .astype(np.float32)
+    got = pt.models.generation._wmat(torch.from_numpy(x), kv).numpy()
+    want = x @ want_w
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
 def test_fuse_layer_weights_refuses_int4_and_mixed_like_jax():
     layer = _fixture()[0]
     jl, tl = _layers(layer, False)

@@ -8,6 +8,11 @@ port's plain PyTorch versions. Tolerances:
   division, round-half-to-even and clip);
 - dequant-matmul, f32: 1e-5 relative (the products are summed in
   another order);
+- the bf16 CUDA kernel's arithmetic emulated on the CPU: its widening of
+  payload bytes bit for bit (exact for every value), and its split-K
+  partials summed in split order with the scale after the sum, against
+  the plain version and the Pallas kernel in interpret mode: f32 1e-5,
+  bf16 1e-2 (the card tests' tolerance), of max(1, max|plain|);
 - ragged attention over int8 pools: 1e-5 absolute, f32 (as the fp pool);
 - the quantizing appends: int8 pages within 1 (a value within rounding
   of a half may round the other way), scales 1e-6 relative.
@@ -146,6 +151,141 @@ def test_dequant_matmul_checks_like_the_reference():
     bf = torch.ones(3, 8, dtype=torch.bfloat16)
     out = tmm.dequant_matmul(bf, w + 1, s)
     assert out.dtype == torch.bfloat16 and torch.all(out == 8)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 CUDA kernel's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _prmt(a, b, sel):
+    """PTX ``prmt.b32`` (default mode) on uint32 arrays: byte i of the
+    result is byte ``(sel >> 4i) & 7`` of the pair (a, b)."""
+    pool = [(a >> (8 * i)) & 0xFF for i in range(4)] + \
+        [(b >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(pool[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def _bf16_halves(word):
+    """The two bf16 halves of uint32 words as float32, low half first."""
+    lo = ((word & 0xFFFF) << 16).astype(np.uint32).view(np.float32)
+    hi = (word & 0xFFFF0000).astype(np.uint32).view(np.float32)
+    return lo, hi
+
+
+def _bf16x2_add(a, b):
+    """``fma.rn.bf16x2 d, a, 1.0, b`` where every sum is exact in bf16
+    (asserted), as the kernel's widening needs."""
+    (al, ah), (bl, bh) = _bf16_halves(a), _bf16_halves(b)
+    lo, hi = al + bl, ah + bh
+    for v in (lo, hi):
+        assert not (v.view(np.uint32) & 0xFFFF).any(), "sum not exact"
+    return lo, hi
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kernel_widening_is_exact_for_every_value(bits):
+    """``csrc/int8_matmul.cu`` widens payload bytes to bf16 pairs with
+    integer bit operations (``widen_i8``, ``widen_i4``): emulated bit for
+    bit here, every int8 value (or int4 pair) at every byte position of
+    its word, beside neighbouring bytes, widens to itself."""
+    rng = np.random.RandomState(bits)
+    u32 = np.uint32
+    for j in range(4):
+        sel = j | (j << 4) | ((j + 4) << 8) | ((j + 4) << 12)
+        if bits == 8:
+            lo_v = np.arange(-128, 128)
+            hi_v = rng.permutation(lo_v)
+            lo_w = rng.randint(0, 2 ** 32, 256, dtype=np.uint64).astype(u32)
+            hi_w = rng.randint(0, 2 ** 32, 256, dtype=np.uint64).astype(u32)
+            mask = u32(~(0xFF << (8 * j)) & 0xFFFFFFFF)
+            lo_w = (lo_w & mask) | ((lo_v.astype(np.uint8).astype(u32)) << 8 * j)
+            hi_w = (hi_w & mask) | ((hi_v.astype(np.uint8).astype(u32)) << 8 * j)
+            d = _prmt(lo_w, hi_w, sel).astype(u32)
+            got = _bf16x2_add((d & 0x007F007F) | 0x43004300,
+                              (d & 0x00800080) | 0xC300C300)
+            np.testing.assert_array_equal(got[0], lo_v)
+            np.testing.assert_array_equal(got[1], hi_v)
+        else:
+            x0, x1 = np.meshgrid(np.arange(-8, 8), np.arange(-8, 8))
+            x0, x1 = x0.ravel(), x1.ravel()
+            byte = ((x1 & 0xF) << 4 | (x0 & 0xF)).astype(u32)
+            word = rng.randint(0, 2 ** 32, byte.size, dtype=np.uint64) \
+                .astype(u32)
+            word = (word & u32(~(0xFF << (8 * j)) & 0xFFFFFFFF)) | \
+                (byte << 8 * j)
+            biased = word ^ u32(0x88888888)
+            d = _prmt(biased, biased >> 4, sel).astype(u32)
+            got = _bf16x2_add((d & 0x000F000F) | 0x43004300,
+                              np.full_like(d, 0xC308C308))
+            np.testing.assert_array_equal(got[0], x0)
+            np.testing.assert_array_equal(got[1], x1)
+
+
+def _kernel_emulation(x, q, s, rows, bits, splits, tile=64):
+    """The bf16 CUDA kernel's arithmetic in plain PyTorch: x as the card
+    holds it times the exactly widened weight, an f32 partial sum per K
+    split (split r of S takes K tiles [T r / S, T (r + 1) / S) of 64 rows,
+    T tiles in all), the partials added in split order, the scale applied
+    after the sum, one rounding to x's dtype."""
+    k = x.shape[1]
+    w = (q if bits == 8 else tq.unpack_int4(q, rows)).to(torch.float32)
+    tiles = -(-k // tile)
+    total = torch.zeros(x.shape[0], q.shape[1])
+    for r in range(splits):
+        a = tiles * r // splits * tile
+        b = min(tiles * (r + 1) // splits * tile, k)
+        total = total + x[:, a:b].to(torch.float32) @ w[a:b]
+    return (total * s.reshape(1, -1)).to(x.dtype)
+
+
+#: (K, N): a K of whole tiles, a ragged K with a ragged N, an odd K
+EMULATED = [(256, 40), (200, 96), (67, 130)]
+_JAX_KERNEL = {}
+
+
+def _jax_kernel(x, q, s, k, bits):
+    """``paddle_tpu``'s Pallas kernel in interpret mode (cached: it does
+    not depend on the split count)."""
+    key = (x.shape, str(x.dtype), k, bits)
+    if key not in _JAX_KERNEL:
+        xj = jnp.asarray(x.to(torch.float32).numpy())
+        if x.dtype == torch.bfloat16:
+            xj = xj.astype(jnp.bfloat16)
+        _JAX_KERNEL[key] = np.asarray(
+            jmm.dequant_matmul(xj, jnp.asarray(q.numpy()),
+                               jnp.asarray(s.numpy()), rows=k, bits=bits,
+                               interpret=True).astype(jnp.float32))
+    return _JAX_KERNEL[key]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("splits", [1, 3, 4])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("shape", EMULATED, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_kernel_arithmetic_matches_plain_and_jax(shape, bits, splits, dtype):
+    """The split-K sum in split order with the scale after it stays
+    within the card tests' tolerance of the plain version and of the
+    Pallas kernel in interpret mode: f32 1e-5, bf16 1e-2 (both of
+    max(1, max|plain|)); the two differ in summation order and, in bf16,
+    in the one rounding of the output."""
+    k, n = shape
+    w = _weights(k, n, seed=k + n + bits)
+    quant = jq.quantize_to_int8 if bits == 8 else jq.quantize_to_int4
+    qj, sj = quant(jnp.asarray(w), axis=1)
+    q = torch.from_numpy(np.array(qj, np.int8))
+    s = torch.from_numpy(np.array(sj, np.float32)).reshape(-1)
+    x = torch.from_numpy(np.random.RandomState(n).randn(5, k)
+                         .astype(np.float32)).to(dtype)
+    got = _kernel_emulation(x, q, s, k, bits, splits)
+    plain = tmm.dequant_matmul_reference(x, q, s, k, bits)
+    assert got.dtype == plain.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    scale = max(1.0, plain.float().abs().max().item())
+    for want in (plain.float().numpy(), _jax_kernel(x, q, s, k, bits)):
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=tol * scale)
 
 
 # ---------------------------------------------------------------------------
