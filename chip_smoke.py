@@ -14,7 +14,9 @@ Phases, each of which must pass (any failure exits non-zero):
    kernel, or a ragged tensor-core instantiation (bf16 or int8 pool),
    without them or with spills fails the run; the same for the
    dequant-matmul's four bf16 instantiations (int8 and int4, wgmma at
-   M > 16, mma.sync at M <= 16), with their shared memory;
+   M > 16, mma.sync at M <= 16), with their shared memory; and every
+   rms_norm kernel's registers, spills, stack and shared memory (a
+   register-tile kernel with spills or a stack frame fails the run);
 2. hold each kernel against its plain PyTorch version on the card:
    ragged paged attention (f32 and bf16, a mixed GQA batch: decode rows,
    multi-page prefill chunks, padding rows, a dead tail; and a batch of
@@ -30,10 +32,11 @@ Phases, each of which must pass (any failure exits non-zero):
    dk/dv group sum bitwise equal to its plain version); fused AdamW (an
    odd-length bucket, f32 and bf16 params,
    both weight-decay modes, t = 1 and 7); phase ``[rms]``: the rms_norm
-   forward (y, rstd) and backward (dx, dw) kernels at f32, bf16 and bf16
-   x with an f32 weight, at the llama_1b [2048, 2048], llama_125m
-   [8192, 768] and a ragged [37, 4100] shape, two backward launches
-   bitwise equal; the decode megakernel at one
+   forward (y, rstd) and backward (dx, dw) kernels at f32, bf16, bf16 x
+   with an f32 weight and f32 x with a bf16 weight, at the llama_1b
+   [2048, 2048], llama_125m [8192, 768], a ragged [37, 4100], one row
+   [1, 2048], a wide [3, 8192] and an odd [9, 1001] shape, two backward
+   launches bitwise equal; the decode megakernel at one
    full-width 7B layer (8 rows at the decode step's kv lengths 49-632):
    bf16 weights with the self-kv contract, int8 weights, an int8 pool,
    and model scope over 2 layers with a bf16 and an int8 pool (the pools
@@ -94,8 +97,10 @@ Phases, each of which must pass (any failure exits non-zero):
     7B serving shapes with GB/s and TFLOP/s and per layer,
     ``torch.optim.AdamW(fused=True)``,
     the ragged kernel's split and merge launches apart by the profiler,
-    ``F.rms_norm``; for the decode and prefill megakernels, which no
-    single PyTorch call matches, the unfused path's time for the same
+    ``F.rms_norm``, with GB/s, the share of the bound and the time
+    behind an L2 of clean lines; for the decode and prefill
+    megakernels, which no single PyTorch call matches, the unfused
+    path's time for the same
     layer), and the int8 pool's segmented append (plain PyTorch) at the
     7B step's shapes.
 
@@ -247,7 +252,7 @@ def sleep_cycles_per_ms(torch):
     return _CYCLES_PER_MS[0]
 
 
-def time_ms(torch, fn, iters, label=None, waits_ok=False):
+def time_ms(torch, fn, iters, label=None, waits_ok=False, clean_l2=False):
     """Mean device time of one call of ``fn``, in ms: each call timed by
     its own CUDA events, after a 128 MB write has evicted the 50 MB L2
     (in the engine each layer's pages are read once per step, cold) and
@@ -262,7 +267,11 @@ def time_ms(torch, fn, iters, label=None, waits_ok=False):
     library call must not (it raises); a plain version or a path of
     several ops (``waits_ok``) may read lengths to the host, and then it
     is logged and its time includes the host's work between those
-    waits, as its callers pay it."""
+    waits, as its callers pay it. ``clean_l2``: evict the L2 by reading
+    the 128 MB instead of writing them, so the call finds it full of
+    clean lines and pays for no write-back of the eviction's lines (the
+    default leaves up to 50 MB of dirty lines, which the call's first
+    50 MB of traffic through the L2 must write back)."""
     label = label or getattr(fn, "__qualname__", "call")
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     fn()
@@ -278,7 +287,10 @@ def time_ms(torch, fn, iters, label=None, waits_ok=False):
             f"host; the device sleeps {sleep_ms:.2f} ms before each")
     events, doublings, waits = [], 0, False
     while len(events) < iters:
-        flush.zero_()
+        if clean_l2:
+            flush.view(torch.int32).amax()
+        else:
+            flush.zero_()
         torch.cuda._sleep(int(sleep_ms * per_ms))
         slept = torch.cuda.Event()
         start = torch.cuda.Event(enable_timing=True)
@@ -351,6 +363,47 @@ def phase_build():
     report_flash_build(_build)
     report_ragged_build(_build)
     report_matmul_build(_build)
+    report_rms_build(_build)
+
+
+#: an rms_norm kernel's mangled name: body and template arguments
+RMS_SYMBOL = re.compile(r"(rms_(?:fwd|bwd|dw)_\w*?kernel)I(\w+?)E+v")
+
+
+def report_rms_build(_build, name="rms_norm"):
+    """Per rms_norm kernel instantiation of ``csrc/<name>.cu``: registers,
+    spills, stack and static shared memory (``-Xptxas -v``), and the
+    backward ring's dynamic shared memory at the llama_1b and llama_125m
+    widths. Raises on a register-tile kernel (the main path's) that
+    spills or keeps a stack frame. Returns the rows."""
+    from paddle_tpu_torch.kernels import rms_norm as trn
+    ptx, _ = build_info(_build, name)
+    rows = []
+    for sym in sorted(ptx):
+        m = RMS_SYMBOL.search(sym)
+        if not m:
+            continue
+        info = ptx[sym]
+        rows.append((m.group(1), m.group(2), info.get("registers"),
+                     info.get("spills"), info.get("stack", 0),
+                     info.get("smem", 0)))
+        log(f"[build] {name}: {m.group(1)}<{m.group(2)}>: {rows[-1][2]} "
+            f"registers, spills (store, load bytes) {rows[-1][3]}, stack "
+            f"{rows[-1][4]} B, static shared memory {rows[-1][5]} B")
+    smem = _build.load(name).rms_norm_bwd_smem_bytes
+    smem.argtypes = trn._library().rms_norm_bwd_smem_bytes.argtypes
+    smem.restype = trn._library().rms_norm_bwd_smem_bytes.restype
+    log(f"[build] {name}: backward ring per block: {smem(0, 1, 2048)} B at "
+        f"[2048, 2048] f32 ({trn.bwd_threads(2048)} threads), "
+        f"{smem(0, 1, 768)} B at [8192, 768] f32 "
+        f"({trn.bwd_threads(768)} threads); dw chunks "
+        f"{trn.dw_chunks(2048, 2048)} and {trn.dw_chunks(8192, 768)} "
+        f"(chunks, rows per chunk)")
+    tile = [r for r in rows if "tile" in r[0]]
+    if not tile or any(r[3] != (0, 0) or r[4] for r in tile):
+        raise AssertionError(f"rms_norm tile kernels with spills or a stack "
+                             f"frame: {tile}")
+    return rows
 
 
 #: a dequant-matmul bf16 kernel's mangled name: bits, and M <= 16
@@ -407,6 +460,12 @@ def build_info(_build, name):
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             ptx[entry]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and entry:
+            ptx[entry]["smem"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and entry:
+            ptx[entry]["stack"] = int(m.group(1))
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run(
         [str(cuobjdump), "-sass", str(_build.library_path(name))],
@@ -753,9 +812,13 @@ def phase_flash_parity(torch):
     return worst
 
 
-#: rms_norm parity shapes: the llama_1b and llama_125m norms, and a
-#: ragged one (37 rows, an f the 16-byte bf16 vector does not divide)
-RMS_SHAPES = {"1b": (2048, 2048), "125m": (8192, 768), "ragged": (37, 4100)}
+#: rms_norm parity shapes: the llama_1b and llama_125m norms, a ragged
+#: one (37 rows, an f the 16-byte bf16 vector does not divide, wider than
+#: the register tile), one row of the 1b norm (fewer rows than the
+#: backward's blocks), a row wider than the register tile (the wide
+#: kernels) and an odd f inside it (the single-element tile)
+RMS_SHAPES = {"1b": (2048, 2048), "125m": (8192, 768), "ragged": (37, 4100),
+              "one row": (1, 2048), "wide": (3, 8192), "odd": (9, 1001)}
 
 #: rms_norm kernel vs plain: f32 max|diff| over max|plain| (sums in
 #: another order); bf16 one bf16 ulp of the larger value, elementwise,
@@ -783,16 +846,18 @@ def rms_err(torch, got, want, dtype, summed):
 
 def phase_rms_parity(torch):
     """rms_norm forward (y, rstd) and backward (dx, dw) kernels against
-    their plain versions at f32, bf16 and bf16 x with f32 w, at the
-    RMS_SHAPES; two backward launches give the same bits. Returns the
-    worst |diff| per kernel."""
+    their plain versions at f32, bf16, bf16 x with f32 w and f32 x with
+    bf16 w, at the RMS_SHAPES; two backward launches give the same bits.
+    Returns the worst |diff| per kernel."""
     from paddle_tpu_torch.kernels import rms_norm as trn
     worst = {"rms_norm_fwd": 0.0, "rms_norm_bwd": 0.0}
     for label, (rows, f) in RMS_SHAPES.items():
         for name, xdt, wdt in (("f32", torch.float32, torch.float32),
                                ("bf16", torch.bfloat16, torch.bfloat16),
                                ("bf16 x, f32 w", torch.bfloat16,
-                                torch.float32)):
+                                torch.float32),
+                               ("f32 x, bf16 w", torch.float32,
+                                torch.bfloat16)):
             g = torch.Generator(device="cuda").manual_seed(rows + f)
             x = torch.randn(rows, f, device="cuda", generator=g).to(xdt)
             w = (1 + 0.5 * torch.randn(f, device="cuda", generator=g)) \
@@ -823,7 +888,7 @@ def phase_rms_parity(torch):
                 f"y {checks['y'][1]:.3e}, rstd rel {rel:.2e}, dx "
                 f"{checks['dx'][1]:.3e}, dw {checks['dw'][1]:.3e} (worst "
                 f"{max(c[0] for c in checks.values()):.2f} of the tolerance"
-                f"); dw bitwise equal over two launches")
+                f"); dx and dw bitwise equal over two launches")
     return worst
 
 
@@ -1160,8 +1225,13 @@ def expected_train_launches(cfg, steps, buckets, micro=1, bf16=False):
             "fused_adamw": steps * buckets}
 
 
+#: the rms_norm kernels of csrc/rms_norm.cu: forward (tile, wide),
+#: backward (tile, wide) and the dw sum in chunk order
+RMS_KERNEL = re.compile(r"\brms_(?:fwd|bwd|dw)_\w*kernel")
+
+
 def is_rms(name):
-    return "rms_fwd_kernel" in name or "rms_bwd_" in name
+    return RMS_KERNEL.search(name) is not None
 
 
 def train_run(torch, tag, cfg, batch, seq):
@@ -1421,9 +1491,10 @@ def phase_time_rms(torch):
         n = rows * f
         # bytes: each input read once, each output written once (f32);
         # operations: 4 per element forward, 12 backward (dx and dw)
-        bounds = {"fwd": bound_ms(4 * (2 * n + f + rows), 4 * n, F32_FLOPS),
-                  "bwd": bound_ms(4 * (3 * n + 2 * f + rows), 12 * n,
-                                  F32_FLOPS)}
+        nbytes = {"fwd": 4 * (2 * n + f + rows),
+                  "bwd": 4 * (3 * n + 2 * f + rows)}
+        bounds = {"fwd": bound_ms(nbytes["fwd"], 4 * n, F32_FLOPS),
+                  "bwd": bound_ms(nbytes["bwd"], 12 * n, F32_FLOPS)}
         xr = x.detach().requires_grad_()
         wr = w.detach().requires_grad_()
         lib_out = F.rms_norm(xr, (f,), wr, eps)
@@ -1444,9 +1515,17 @@ def phase_time_rms(torch):
                                    f"F.rms_norm {key} (library)"),
                 bound_ms=bounds[key][0], bound_by=bounds[key][1],
                 max_abs_err=err[key])
+            row[key]["ms_clean_l2"] = time_ms(
+                torch, kern, 50, f"rms_norm {key} kernel, clean L2",
+                clean_l2=True)
+            row[key]["gb_s"] = nbytes[key] / row[key]["ms"] / 1e6
+            row[key]["bound_share"] = row[key]["bound_ms"] / row[key]["ms"]
             log(f"[time] rms_norm {key} at the {label} shape [{rows}, {f}] "
-                f"f32: kernel {row[key]['ms']:.4f} ms, bound "
+                f"f32: kernel {row[key]['ms']:.4f} ms, "
+                f"{row[key]['gb_s']:.0f} GB/s, "
+                f"{100 * row[key]['bound_share']:.1f}% of the bound "
                 f"{row[key]['bound_ms']:.4f} ms ({row[key]['bound_by']}), "
+                f"{row[key]['ms_clean_l2']:.4f} ms behind a clean L2, "
                 f"plain {row[key]['plain_ms']:.4f} ms, "
                 f"F.rms_norm{' backward' if key == 'bwd' else ''} "
                 f"{row[key]['library_ms']:.4f} ms, max|diff| {err[key]:.3e}")

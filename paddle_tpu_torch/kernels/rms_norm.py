@@ -13,9 +13,12 @@ Two implementations of each:
 
 - :func:`rms_norm_fwd_reference` and :func:`rms_norm_bwd_reference`,
   plain PyTorch, op for op the Pallas kernels' math;
-- the CUDA kernels of ``csrc/rms_norm.cu`` (see its header), whose
-  ``dw`` is reduced in a fixed order: two launches on the same inputs
-  give the same bits.
+- the CUDA kernels of ``csrc/rms_norm.cu`` (see its header): the
+  forward one launch, the backward one pass over ``x`` and ``dy`` whose
+  blocks each write one f32 ``dw`` partial for a chunk of rows (its rows
+  added in row order), then a second launch that adds the partials in
+  chunk order. The chunking (:func:`dw_chunks`) is a function of the
+  shape alone: two launches on the same inputs give the same bits.
 
 :func:`rms_norm` is differentiable (:class:`RMSNormFunction`, which
 saves ``x``, ``w`` and ``rstd`` as the reference's custom VJP ``_rms``
@@ -41,9 +44,16 @@ from . import LAUNCHES
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-#: blocks the dw pass aims to put in flight (8 per SM of an H100)
-_DW_BLOCKS = 132 * 8
-_COL_THREADS = 256
+#: the backward's chunking (csrc/rms_norm.cu: kBwdElems, kMaxTileF,
+#: kWideThreads): row elements per thread of the tile kernel, the widest
+#: row it takes, and the wide kernel's threads
+_BWD_ELEMS = 8
+_MAX_TILE_F = 4096
+_WIDE_THREADS = 256
+#: SMs of an H100, and backward blocks aimed at each: one, or as many as
+#: make 8 warps (measured by tools/rms_variants.py --blocks)
+_SMS = 132
+_BWD_BLOCKS_PER_SM = 1
 
 
 def rms_norm_fwd_reference(x2, w, eps):
@@ -118,12 +128,24 @@ def rms_norm_fwd(x2, w, eps):
     return y, rstd
 
 
+def bwd_threads(f):
+    """Threads of a backward block for rows of ``f`` elements: 32 per
+    ``32 × _BWD_ELEMS`` elements up to ``_MAX_TILE_F``, else the wide
+    kernel's."""
+    if f > _MAX_TILE_F:
+        return _WIDE_THREADS
+    return 32 * -(-f // (32 * _BWD_ELEMS))
+
+
 def dw_chunks(rows, f):
-    """``(chunks, rows_per_chunk)`` of the dw pass: about ``_DW_BLOCKS``
-    blocks of 256 columns by a chunk of rows. A function of the shape
-    alone, so the summation order is too."""
-    col_blocks = -(-f // _COL_THREADS)
-    want = max(1, min(rows, -(-_DW_BLOCKS // col_blocks), 65535))
+    """``(chunks, rows_per_chunk)`` of the backward: one block per chunk
+    of consecutive rows, ``_BWD_BLOCKS_PER_SM`` per SM (more when a
+    block has fewer than 8 warps: enough for 8), at most one per row. A
+    function of the shape and of constants alone, so the summation order
+    of ``dw`` is too: within a chunk in row order, then the chunks in
+    chunk order."""
+    per_sm = max(_BWD_BLOCKS_PER_SM, 8 // (bwd_threads(f) // 32))
+    want = max(1, min(rows, _SMS * per_sm))
     per = -(-rows // want)
     return -(-rows // per), per
 
@@ -207,10 +229,13 @@ def _library():
                        ctypes.c_longlong)
         lib.rms_norm_fwd.argtypes = [i, i, i] + [p] * 4 + [ll, i, f, p]
         lib.rms_norm_bwd.argtypes = [i, i, i] + [p] * 7 + [ll, i, i, ll, p]
+        lib.rms_norm_bwd_smem_bytes.argtypes = [i, i, i]
         lib.rms_norm_fwd.restype = i
         lib.rms_norm_bwd.restype = i
+        lib.rms_norm_bwd_smem_bytes.restype = ll
     return lib
 
 
-__all__ = ["RMSNormFunction", "dw_chunks", "rms_norm", "rms_norm_bwd",
-           "rms_norm_bwd_reference", "rms_norm_fwd", "rms_norm_fwd_reference"]
+__all__ = ["RMSNormFunction", "bwd_threads", "dw_chunks", "rms_norm",
+           "rms_norm_bwd", "rms_norm_bwd_reference", "rms_norm_fwd",
+           "rms_norm_fwd_reference"]

@@ -1206,9 +1206,13 @@ def test_fused_engine_on_the_card_matches_the_cpu(cuda, knobs, scope):
 # rms_norm forward and backward; remat and accumulation on the card
 # ---------------------------------------------------------------------------
 
-#: the llama_1b and llama_125m norm shapes and a ragged one (odd rows, an
-#: f that the 16-byte bf16 vector does not divide)
-RMS_SHAPES = {"1b": (2048, 2048), "125m": (8192, 768), "ragged": (37, 4100)}
+#: the llama_1b and llama_125m norm shapes, a ragged one (odd rows, an
+#: f that the 16-byte bf16 vector does not divide, wider than the register
+#: tile), one row of the 1b norm (fewer rows than the backward's blocks),
+#: a row wider than the register tile (the wide kernels) and an odd f
+#: inside it (the single-element tile)
+RMS_SHAPES = {"1b": (2048, 2048), "125m": (8192, 768), "ragged": (37, 4100),
+              "one_row": (1, 2048), "wide": (3, 8192), "odd": (9, 1001)}
 
 
 def _rms_case(dev, rows, f, xdt, wdt, seed=0):
@@ -1241,15 +1245,18 @@ def _rms_close(got, want, dtype, summed):
         (got - want).abs().max().item()
 
 
+RMS_DTYPES = {"f32": (torch.float32, torch.float32),
+              "bf16": (torch.bfloat16, torch.bfloat16),
+              "bf16_x_f32_w": (torch.bfloat16, torch.float32),
+              "f32_x_bf16_w": (torch.float32, torch.bfloat16)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
-                                    (torch.bfloat16, torch.bfloat16),
-                                    (torch.bfloat16, torch.float32)],
-                         ids=["f32", "bf16", "bf16_x_f32_w"])
+@pytest.mark.parametrize("dtypes", sorted(RMS_DTYPES))
 @pytest.mark.parametrize("shape", sorted(RMS_SHAPES))
 def test_rms_norm_kernels_match_plain_version(cuda, shape, dtypes):
     from paddle_tpu_torch.kernels import rms_norm as trn
-    xdt, wdt = dtypes
+    xdt, wdt = RMS_DTYPES[dtypes]
     x, w, dy = _rms_case(cuda, *RMS_SHAPES[shape], xdt, wdt)
     reset_launch_counts()
     y, rstd = trn.rms_norm_fwd(x, w, 1e-5)
@@ -1266,6 +1273,28 @@ def test_rms_norm_kernels_match_plain_version(cuda, shape, dtypes):
     _rms_close(y, py, xdt, summed=False)
     _rms_close(dx, pdx, xdt, summed=True)
     _rms_close(dw, pdw, wdt, summed=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rms_norm_kernels_on_unaligned_rows(cuda, dtype):
+    """Rows that start one element past a 16-byte boundary take the
+    single-element path (vec = 0) at the 1b width."""
+    from paddle_tpu_torch.kernels import rms_norm as trn
+    rows, f = 40, 2048
+    g = torch.Generator(device=cuda).manual_seed(3)
+    base = torch.randn(2, rows * f + 1, device=cuda, generator=g).to(dtype)
+    x, dy = base[0, 1:].view(rows, f), base[1, 1:].view(rows, f)
+    w = (1 + 0.5 * torch.randn(f, device=cuda, generator=g)).to(dtype)
+    assert trn._vec(f, x, w) == 0
+    y, rstd = trn.rms_norm_fwd(x, w, 1e-5)
+    dx, dw = trn.rms_norm_bwd(x, w, rstd, dy)
+    py, _ = trn.rms_norm_fwd_reference(x, w, 1e-5)
+    pdx, pdw = trn.rms_norm_bwd_reference(x, w, rstd, dy)
+    _rms_close(y, py, dtype, summed=False)
+    _rms_close(dx, pdx, dtype, summed=True)
+    _rms_close(dw, pdw, dtype, summed=True)
 
 
 @pytest.mark.cuda

@@ -224,9 +224,59 @@ def test_strided_rows_read_through_a_view():
 
 
 @pytest.mark.parametrize("rows,f", [(2048, 2048), (8192, 768), (37, 4100),
-                                    (1, 5), (300, 256)])
+                                    (1, 5), (300, 256), (1, 2048),
+                                    (3, 8192), (10 ** 6, 64)])
 def test_dw_chunks_cover_the_rows_once(rows, f):
     chunks, per = trn.dw_chunks(rows, f)
     assert 1 <= chunks <= 65535 and per >= 1
     assert (chunks - 1) * per < rows <= chunks * per
     assert trn.dw_chunks(rows, f) == (chunks, per)
+
+
+def _dw_in_chunk_order(x2, w, g2, eps):
+    """The CUDA backward's dw order in plain PyTorch (f32): per chunk of
+    ``dw_chunks``, the rows' ``dy · x̂`` (each product rounded) added in
+    row order from zero; then the chunks' partials added in chunk order.
+    Returns ``(dw, chunks, rows_per_chunk)``."""
+    rows, f = x2.shape
+    _, rstd = trn.rms_norm_fwd_reference(x2, w, eps)
+    prod = g2 * (x2 * rstd)
+    chunks, per = trn.dw_chunks(rows, f)
+    dw = torch.zeros(f)
+    for c in range(chunks):
+        part = torch.zeros(f)
+        for r in range(c * per, min((c + 1) * per, rows)):
+            part = part + prod[r]
+        dw = dw + part
+    return dw, chunks, per
+
+
+#: the llama_1b and llama_125m norms with fewer rows (several rows per
+#: chunk, many chunks), and the ragged shape (the wide kernel) and a
+#: 1b-wide one with fewer rows than the backward aims blocks at (a chunk
+#: per row)
+DW_SHAPES = {"1b_rows": (600, 2048), "125m_rows": (600, 768),
+             "ragged": (37, 4100), "rows_lt_chunks": (5, 2048)}
+
+
+@pytest.mark.parametrize("shape", sorted(DW_SHAPES))
+def test_dw_in_chunk_order_matches_the_pallas_kernel(shape):
+    """The kernel's dw summation order (within chunks, then across them)
+    against the Pallas kernel's dw under ``jax.grad`` in interpret mode,
+    f32: max|diff| <= 1e-5 x max|Pallas| (hundreds of terms summed in
+    another order, so a column that cancels to near zero carries the
+    rounding of its large terms; the card tests' form)."""
+    rows, f = DW_SHAPES[shape]
+    x, w, g = _inputs((rows, f), seed=rows + f)
+    got, chunks, per = _dw_in_chunk_order(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(g), EPS)
+    assert (chunks - 1) * per < rows <= chunks * per
+    if rows <= trn._SMS * trn._BWD_BLOCKS_PER_SM:
+        assert (chunks, per) == (rows, 1)
+    else:
+        assert 1 < chunks < rows
+    pallas = lambda a, b: pallas_rms_norm(  # noqa: E731
+        a, b, EPS, block_rows=1 if rows % 8 else 8, interpret=True)
+    _, _, want, _ = _jax(pallas, x, w, g, jnp.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
