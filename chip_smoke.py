@@ -110,6 +110,7 @@ from the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import subprocess
@@ -364,6 +365,8 @@ def phase_build():
     report_ragged_build(_build)
     report_matmul_build(_build)
     report_rms_build(_build)
+    report_prefill_build(_build)
+    report_adamw_build(_build)
 
 
 #: an rms_norm kernel's mangled name: body and template arguments
@@ -404,6 +407,65 @@ def report_rms_build(_build, name="rms_norm"):
         raise AssertionError(f"rms_norm tile kernels with spills or a stack "
                              f"frame: {tile}")
     return rows
+
+
+#: a prefill megakernel's mangled name: its template arguments (hidden,
+#: weight and pool types)
+PREFILL_SYMBOL = re.compile(r"prefill_megakernelI(\w+?)EEv")
+
+
+def prefill_variant_name(args):
+    """``hidden/weights/pool`` of a prefill megakernel's mangled template
+    arguments (``13__nv_bfloat16`` is bf16, ``S<n>_`` repeats it, ``a`` is
+    int8, ``f`` f32)."""
+    out, first = [], None
+    for tok in re.findall(r"13__nv_bfloat16|S\d*_|a|f", args):
+        name = {"a": "int8", "f": "f32"}.get(tok, "bf16")
+        first = first or name
+        out.append(name)
+    return "/".join(out)
+
+
+def report_prefill_build(_build, name="prefill_megakernel", strict=True):
+    """Per prefill megakernel instantiation of ``csrc/<name>.cu``:
+    registers, spills, dynamic shared memory and HGMMA/HMMA count, the
+    cluster and the launch route. ``strict``: raises unless every bf16
+    instantiation (bf16 or int8 weights) has wgmma (HGMMA) and no
+    spills. Returns the rows."""
+    ptx, mma = build_info(_build, name)
+    limits = (ctypes.c_int * 9)()
+    lib = _build.load(name)
+    lib.prefill_megakernel_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.prefill_megakernel_limits(limits)
+    rows = []
+    for sym in sorted(set(ptx) | set(mma)):
+        m = PREFILL_SYMBOL.search(sym)
+        if not m:
+            continue
+        info = ptx.get(sym, {})
+        rows.append(dict(variant=prefill_variant_name(m.group(1)),
+                         registers=info.get("registers"),
+                         spills=info.get("spills"), mma=mma.get(sym, 0)))
+        log(f"[build] {name}<{rows[-1]['variant']}>: {rows[-1]['registers']} "
+            f"registers, spills (store, load bytes) {rows[-1]['spills']}, "
+            f"{rows[-1]['mma']} HMMA/HGMMA instructions, "
+            f"{limits[8]} B dynamic shared memory, clusters of {limits[3]}")
+    tc = [r for r in rows if r["variant"].startswith("bf16")]
+    bad = [r for r in tc if r["mma"] == 0 or r["spills"] != (0, 0)]
+    if strict and (len(tc) != 4 or bad):
+        raise AssertionError(f"prefill megakernel bf16 instantiations without "
+                             f"tensor-core instructions or with spills: {tc}")
+    return rows
+
+
+def report_adamw_build(_build):
+    """fused AdamW's registers and spills per params dtype."""
+    ptx, _ = build_info(_build, "fused_adamw")
+    for sym, info in sorted(ptx.items()):
+        if "fused_adamw_kernel" in sym:
+            dt = "bf16" if "bfloat16" in sym else "f32"
+            log(f"[build] fused_adamw_kernel<{dt}>: {info.get('registers')} "
+                f"registers, spills (store, load bytes) {info.get('spills')}")
 
 
 #: a dequant-matmul bf16 kernel's mangled name: bits, and M <= 16
@@ -926,6 +988,41 @@ def phase_adamw_parity(torch):
     log(f"[parity] fused_adamw bucket of {n} (f32 and bf16 params, AdamW "
         f"and coupled Adam, t = 1 and 7): max|kernel - plain| = "
         f"{worst:.3e} (atol {ADAMW_ATOL:g})")
+    # a masked step: a span table over an odd-length bucket (absent
+    # parameters between the spans), bitwise the plain masked version, the
+    # absent elements byte-identical before and after
+    n = 1_000_003
+    spans = [(0, 7), (16, 40_001), (40_024, 3), (100_000, 600_000),
+             (999_992, 11)]
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        g = torch.Generator(device="cuda").manual_seed(9)
+        p = torch.randn(n, device="cuda", generator=g).to(dtype)
+        gr = (torch.randn(n, device="cuda", generator=g) * 1e-2).to(dtype)
+        m = torch.randn(n, device="cuda", generator=g) * 1e-3
+        v = torch.rand(n, device="cuda", generator=g) * 1e-5
+        table = tfw.span_table(spans, dtype, "cuda")
+        sc = torch.tensor(tfw.adamw_scalars(1e-3, 4, 0.9, 0.999),
+                          device="cuda")
+        kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+                  decoupled=True, spans=table)
+        got = [x.clone() for x in (p, m, v)]
+        tfw.fused_adamw(got[0], gr, got[1], got[2], sc, **kw)
+        torch.cuda.synchronize()
+        want = [x.clone() for x in (p, m, v)]
+        tfw.fused_adamw_reference(want[0], gr, want[1], want[2], sc, **kw)
+        mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+        for a, ln in spans:
+            mask[a:a + ln] = True
+        if not all(torch.equal(a, b) for a, b in zip(got, want)) or not all(
+                torch.equal(a[~mask], b[~mask])
+                for a, b in zip(got, (p, m, v))):
+            raise AssertionError(f"fused_adamw masked {name}: not bitwise the "
+                                 f"plain masked version, or an absent span "
+                                 f"moved")
+    log(f"[parity] fused_adamw masked step: {len(spans)} present spans of an "
+        f"odd bucket of {n} (f32 and bf16 params): bitwise the plain masked "
+        f"version; the absent elements' values and moments byte-identical")
     return worst
 
 
@@ -971,6 +1068,75 @@ def phase_train_parity(torch):
                                  f"{losses}")
         log(f"[train] small f32 Llama{label}, 3 TrainSteps: losses on cuda "
             f"{losses['cuda']} vs cpu {losses['cpu']} (rtol 1e-4)")
+    phase_train_masked(torch)
+
+
+def phase_train_masked(torch):
+    """A small f32 Llama on the card and on the CPU, 3 TrainSteps: one
+    weight frozen after the optimizer's build, the final norm's weight
+    left out of one step's graph (no gradient): both keep their values
+    and moments on the steps they sit out, bitwise on each device; the
+    losses agree to 1e-4 relative and the parameters within 2 lr per
+    step (Adam moves an entry by about lr whatever its gradient, so an
+    entry whose gradient is within rounding of zero may step the other
+    way on the other device: the bound of tests/test_torch_train.py);
+    one AdamW launch per step."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    cfg = pt.llama_tiny_config(num_hidden_layers=2, hidden_size=256,
+                               intermediate_size=512, num_attention_heads=4,
+                               num_key_value_heads=2, vocab_size=256,
+                               loss_chunk_size=64)
+    ids = np.random.RandomState(4).randint(0, cfg.vocab_size, (2, 32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = pt.LlamaForCausalLM(
+            cfg, device="cpu", generator=torch.Generator().manual_seed(4))
+        model.to(dev)
+        opt = pt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+        frozen = model.model.layers[0].mlp.down_proj.weight
+        frozen.requires_grad_(False)
+        absent = model.model.norm.weight
+        x = torch.from_numpy(ids).to(dev)
+
+        def loss_fn(x, skip_norm):
+            # out of the graph for one step: the final norm's weight gets
+            # no gradient then
+            absent.requires_grad_(not skip_norm)
+            return model(x, labels=x)[1]
+        step = pt.TrainStep(model, loss_fn, opt)
+        reset_launch_counts()
+        losses = []
+        for i in range(3):
+            keep = [t.detach().clone() for t in (frozen, absent)]
+            views = opt._fused_engine.state_views()
+            moms = [views[(absent, k)].clone() for k in ("moment1",
+                                                         "moment2")]
+            losses.append(step(x, i == 1).item())
+            if not torch.equal(keep[0], frozen.detach()):
+                raise AssertionError(f"{dev}: a frozen weight moved")
+            if i == 1 and not (torch.equal(keep[1], absent.detach()) and all(
+                    torch.equal(a, opt._fused_engine.state_views()[
+                        (absent, k)]) for a, k in zip(moms, ("moment1",
+                                                            "moment2")))):
+                raise AssertionError(f"{dev}: a parameter without a gradient "
+                                     f"moved or its moments did")
+        if dev == "cuda" and LAUNCHES["fused_adamw"] != 3:
+            raise AssertionError(f"fused_adamw launches "
+                                 f"{LAUNCHES['fused_adamw']}, want 3")
+        out[dev] = ({k: v.detach().cpu()
+                     for k, v in model.named_parameters()}, losses)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
+    worst = max((out["cuda"][0][k] - out["cpu"][0][k]).abs().max().item()
+                for k in out["cpu"][0])
+    if worst > 2 * 1e-3 * 3 + 1e-6:
+        raise AssertionError(f"masked TrainSteps: card vs cpu {worst}")
+    log(f"[train] small f32 Llama, 3 TrainSteps with a weight frozen after "
+        f"the build and the final norm's weight without a gradient on step "
+        f"2: both held bitwise where absent, on both devices; losses on "
+        f"cuda {out['cuda'][1]} vs cpu {out['cpu'][1]} (rtol 1e-4), "
+        f"parameters max|diff| {worst:.3e} (<= 2 lr x 3 steps); 3 fused_adamw "
+        f"launches")
 
 
 #: decode steps of the 7B run traced by torch.profiler
@@ -1533,9 +1699,19 @@ def phase_time_rms(torch):
     return out
 
 
-def phase_time_adamw(torch, n):
-    """fused AdamW on the llama_125m bucket (n f32 elements) beside its
-    bound, the plain version and torch.optim.AdamW(fused=True)."""
+def phase_time_adamw(torch, buckets):
+    """fused AdamW on each bucket of ``{label: n f32 elements}`` (the
+    llama_125m and llama_1b ones) beside its bound, the plain version and
+    torch.optim.AdamW(fused=True), the memory of one freed before the
+    next."""
+    out = {}
+    for label, n in buckets.items():
+        out[label] = time_adamw_bucket(torch, label, n)
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_adamw_bucket(torch, label, n):
     from paddle_tpu_torch.kernels import fused_adamw as tfw
     g = torch.Generator(device="cuda").manual_seed(5)
     p = torch.randn(n, device="cuda", generator=g)
@@ -1550,23 +1726,26 @@ def phase_time_adamw(torch, n):
     tfw.fused_adamw_reference(p, gr, m, v, sc, **kw)
     err = max((a - b).abs().max().item() for a, b in zip(got, (p, m, v)))
     if err > ADAMW_ATOL:
-        raise AssertionError(f"fused_adamw at the 125m bucket: {err}")
+        raise AssertionError(f"fused_adamw at the {label} bucket: {err}")
     del got
     ms = time_ms(torch, lambda: tfw.fused_adamw(p, gr, m, v, sc, **kw), 20)
     plain_ms = time_ms(torch, lambda: tfw.fused_adamw_reference(
         p, gr, m, v, sc, **kw), 5, "fused_adamw plain", waits_ok=True)
-    param = torch.nn.Parameter(p.clone())
-    param.grad = gr.clone()
+    torch.cuda.empty_cache()
+    param = torch.nn.Parameter(p)          # shares p's memory
+    param.grad = gr
     lib_opt = torch.optim.AdamW([param], lr=1e-4, weight_decay=0.01,
                                 fused=True)
     library_ms = time_ms(torch, lib_opt.step, 20)
+    del lib_opt, param
     bms, by = bound_ms(28 * n, 0)
-    log(f"[time] fused_adamw on the llama_125m bucket ({n} f32): kernel "
-        f"{ms:.4f} ms, bound {bms:.4f} ms ({by}, 28 B/element), plain "
-        f"{plain_ms:.4f} ms, torch.optim.AdamW(fused=True) {library_ms:.4f} "
-        f"ms, max|diff| {err:.3e}")
+    log(f"[time] fused_adamw on the {label} bucket ({n} f32): kernel "
+        f"{ms:.4f} ms, bound {bms:.4f} ms ({by}, 28 B/element, "
+        f"{bms / ms:.1%} of it), plain {plain_ms:.4f} ms, "
+        f"torch.optim.AdamW(fused=True) {library_ms:.4f} ms, max|diff| "
+        f"{err:.3e}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=library_ms, max_abs_err=err)
+                library_ms=library_ms, max_abs_err=err, n=n)
 
 
 def ragged_kernel_split(torch, call, n=20):
@@ -2281,7 +2460,17 @@ def phase_prefill_parity(torch):
             if side == "kernel":
                 out = pmk.fused_prefill_layer(*args, k_scales=ks, v_scales=vs,
                                               **kw, **kw_kv)
+                kp2, vp2, ks2, vs2 = [x.clone() if x is not None else None
+                                      for x in pool]
+                again = pmk.fused_prefill_layer(
+                    fused, h, kp2, vp2, *args[4:], k_scales=ks2,
+                    v_scales=vs2, **kw, **kw_kv)
                 torch.cuda.synchronize()
+                if not all(a is None or torch.equal(a, b)
+                           for a, b in zip(out, again)):
+                    raise AssertionError(f"prefill megakernel {label}: two "
+                                         f"launches differ")
+                del again, kp2, vp2, ks2, vs2
             else:
                 out = pmk._reference_prefill_layer(
                     *args, num_kv_heads=32, head_dim=128, page_size=PAGE,
@@ -2308,9 +2497,36 @@ def phase_prefill_parity(torch):
             pool_note = f"bf16 pools {kv:.3e}"
         log(f"[parity] prefill_megakernel 7B layer, {label}, T {STEP_T} "
             f"(rows {PREFILL_7B_ROWS}): max|kernel - plain| h {err:.3e} (tol "
-            f"{tol:.3e}), {pool_note}")
+            f"{tol:.3e}), {pool_note}; two launches bitwise equal")
         del fused, pool, outs
         torch.cuda.empty_cache()
+    # model scope: two full-width layers through fused_prefill_model (one
+    # launch each) against the plain layer loop, bf16 weights and pools
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    fused = [pmk.fuse_layer_weights(lyr)
+             for lyr in mega_layers(torch, 2, False, seed=43)]
+    h, pool, m, _ = prefill_inputs(torch, False, seed=44)
+    meta = (m["tbl"], m["pre"], m["q_starts"], m["q_lens"], m["kv_lens"])
+    kps, vps = [pool[0].clone() for _ in fused], [pool[1].clone()
+                                                  for _ in fused]
+    reset_launch_counts()
+    got = pmk.fused_prefill_model(fused, h, kps, vps, *meta, **kw)[0]
+    torch.cuda.synchronize()
+    if LAUNCHES["prefill_megakernel"] != len(fused):
+        raise AssertionError(f"fused_prefill_model: "
+                             f"{LAUNCHES['prefill_megakernel']} launches, "
+                             f"want {len(fused)}")
+    want = h
+    for lyr in fused:
+        want = pmk._reference_prefill_layer(
+            lyr, want, pool[0].clone(), pool[1].clone(), *meta,
+            num_kv_heads=32, head_dim=128, page_size=PAGE, **kw)[0]
+    err, tol = mega_err(torch, got, want, "prefill megakernel model scope")
+    worst = max(worst, err)
+    log(f"[parity] prefill_megakernel model scope, 2 7B layers, bf16: one "
+        f"launch per layer; max|kernel - plain| h {err:.3e} (tol {tol:.3e})")
+    del fused, pool, kps, vps
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -2504,7 +2720,9 @@ def main() -> int:
     matmul = phase_time_matmul(torch)
     phase_time_append(torch)
     flash = phase_time_flash(torch)
-    adamw = phase_time_adamw(torch, train["n_params"])
+    adamw_all = phase_time_adamw(torch, {"llama_125m": train["n_params"],
+                                         "llama_1b": train_1b["n_params"]})
+    adamw = adamw_all["llama_125m"]
     mega = phase_time_megakernel(torch)
     prefill = phase_time_prefill(torch)
     rms = phase_time_rms(torch)
@@ -2601,7 +2819,11 @@ def main() -> int:
         "ms": adamw["ms"], "plain_ms": adamw["plain_ms"],
         "bound_ms": adamw["bound_ms"], "bound_by": adamw["bound_by"],
         "library_ms": adamw["library_ms"],
-        "shape": f"llama_125m bucket ({train['n_params']} f32)"})
+        "shape": f"llama_125m bucket ({train['n_params']} f32)",
+        "llama_1b": dict(adamw_all["llama_1b"],
+                         launches=train_1b["launches"]["fused_adamw"],
+                         shape=f"llama_1b bucket ({train_1b['n_params']} "
+                               f"f32)")})
     for bits, line, run in ((8, 61, "w8_kv8"), (4, 80, "w4_kv8")):
         row = matmul[bits]
         name = f"int{bits}_matmul"

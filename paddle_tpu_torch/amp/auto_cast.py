@@ -10,7 +10,7 @@ torch's own op lists cast the matrix products; the port's attention
 
 Only O1 with the default lists is ported. O2 (low-precision parameters
 with f32 master weights) and custom lists raise ``NotImplementedError``
-(ROADMAP A5).
+(ROADMAP item 'amp/').
 """
 from __future__ import annotations
 
@@ -55,13 +55,15 @@ class auto_cast:
                  custom_black_list=None, level="O1", dtype="bfloat16"):
         if level == "O2":
             raise NotImplementedError(
-                "auto_cast level O2 is not ported yet (ROADMAP A5)")
+                "auto_cast level O2 is not ported yet (ROADMAP item "
+                "'amp/')")
         if level not in ("O0", "O1"):
             raise ValueError(f"auto_cast level must be O0, O1 or O2, got "
                              f"{level!r}")
         if custom_white_list or custom_black_list:
             raise NotImplementedError(
-                "auto_cast custom op lists are not ported yet (ROADMAP A5)")
+                "auto_cast custom op lists are not ported yet (ROADMAP "
+                "item 'amp/')")
         if dtype not in _DTYPES:
             raise ValueError(f"auto_cast dtype must be one of "
                              f"{sorted(_DTYPES)}, got {dtype!r}")

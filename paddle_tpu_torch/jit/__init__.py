@@ -19,8 +19,10 @@ policy for the step (``nn.scan_stack.remat_policy_scope``); None defers
 to ``FLAGS_remat_policy`` and the model's ``config.remat``.
 
 Not ported yet, each raising ``NotImplementedError``: CUDA-graph
-capture of the whole step (ROADMAP A8), GSPMD ``sharding`` (queue A's
-distributed item), ``capture_hlo`` (no XLA here; ROADMAP A8).
+capture of the whole step (ROADMAP item 'The compiled
+``jit.TrainStep``'), GSPMD ``sharding`` (queue A's
+distributed item), ``capture_hlo`` (no XLA here; the same
+item).
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ class TrainStep:
                                       "queue A")
         if capture_hlo:
             raise NotImplementedError("TrainStep(capture_hlo=True) has no "
-                                      "counterpart without XLA (ROADMAP A8)")
+                                      "counterpart without XLA (ROADMAP item "
+                                      "'The compiled jit.TrainStep')")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer

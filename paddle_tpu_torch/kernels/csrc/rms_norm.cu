@@ -10,7 +10,8 @@
 //     dtype, and dw = sum over rows of dy * xhat in w's dtype. The TPU
 //     kernel sums dw in a VMEM scratch carried across its sequential grid.
 //
-// x and w are f32 or bf16 in any mix (dy has x's dtype); every tensor is
+// x and w are f32 or bf16 in any mix; y has their promoted type (f32 unless
+// both are bf16, as jnp promotes them), dy and dx x's type; every tensor is
 // contiguous.
 //
 // Bound: memory (about 1 flop per byte forward, 3 backward), so the design
@@ -59,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kSMs = 132;           // H100 SXM; sets the forward's chunking
@@ -95,6 +98,10 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+
+// y's type: x's and w's promoted (bf16 only when both are)
+template <typename TX, typename TW>
+using YOf = std::conditional_t<std::is_same<TW, float>::value, float, TX>;
 
 // N consecutive elements as one aligned access (N * sizeof(T) bytes).
 template <typename T, int N>
@@ -177,8 +184,9 @@ struct Chunk {
 template <typename TX, typename TW, int V, int NV>
 __global__ void __launch_bounds__(kMaxFwdThreads)
 rms_fwd_tile_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                    TX* __restrict__ y, float* __restrict__ rstd,
+                    YOf<TX, TW>* __restrict__ y, float* __restrict__ rstd,
                     long long rows, int f, float eps, long long per) {
+  using TY = YOf<TX, TW>;
   __shared__ float red[2][32];
   const int G = blockDim.x, tid = threadIdx.x, nvec = f / V;
   const Chunk ch(rows, per);
@@ -226,7 +234,7 @@ rms_fwd_tile_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
       ss = block_sum(ss, red, parity);
       const float r = rsqrtf(__fadd_rn(__fdiv_rn(ss, (float)f), eps));
       if (tid == 0) rstd[i] = r;
-      TX* yr = y + i * f;
+      TY* yr = y + i * f;
 #pragma unroll
       for (int k = 0; k < NV; ++k) {
         const int j = tid + G * k;
@@ -235,7 +243,7 @@ rms_fwd_tile_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
 #pragma unroll
         for (int e = 0; e < V; ++e)
           out[e] = __fmul_rn(__fmul_rn(to_f32(ring[s][k].v[e]), r), wv[k][e]);
-        store<TX, V>(yr + (long long)j * V, out);
+        store<TY, V>(yr + (long long)j * V, out);
       }
     }
   }
@@ -247,14 +255,15 @@ rms_fwd_tile_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
 template <typename TX, typename TW, int N>
 __global__ void __launch_bounds__(32 * kWideWarps)
 rms_fwd_wide_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                    TX* __restrict__ y, float* __restrict__ rstd,
+                    YOf<TX, TW>* __restrict__ y, float* __restrict__ rstd,
                     long long rows, int f, float eps) {
+  using TY = YOf<TX, TW>;
   const int lane = threadIdx.x & 31;
   const long long row =
       (long long)blockIdx.x * kWideWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const TX* xr = x + row * f;
-  TX* yr = y + row * f;
+  TY* yr = y + row * f;
   const int chunks = f / N;
   float ss = 0.f;
   for (int j = lane; j < chunks; j += 32) {
@@ -272,7 +281,7 @@ rms_fwd_wide_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
     load<TW, N>(w + (long long)j * N, wv);
 #pragma unroll
     for (int k = 0; k < N; ++k) yv[k] = __fmul_rn(__fmul_rn(xv[k], r), wv[k]);
-    store<TX, N>(yr + (long long)j * N, yv);
+    store<TY, N>(yr + (long long)j * N, yv);
   }
 }
 
@@ -558,7 +567,7 @@ void launch_fwd_tile(const void* x, const void* w, void* y, float* rstd,
   const unsigned blocks = (unsigned)((rows + per - 1) / per);
   rms_fwd_tile_kernel<TX, TW, V, kFwdElems / V><<<blocks, threads, 0, s>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(w),
-      static_cast<TX*>(y), rstd, rows, f, eps, per);
+      static_cast<YOf<TX, TW>*>(y), rstd, rows, f, eps, per);
 }
 
 template <typename TX, typename TW>
@@ -576,11 +585,11 @@ int launch_fwd(int vec, const void* x, const void* w, void* y, float* rstd,
   if (vec)
     rms_fwd_wide_kernel<TX, TW, V><<<blocks, 32 * kWideWarps, 0, s>>>(
         static_cast<const TX*>(x), static_cast<const TW*>(w),
-        static_cast<TX*>(y), rstd, rows, f, eps);
+        static_cast<YOf<TX, TW>*>(y), rstd, rows, f, eps);
   else
     rms_fwd_wide_kernel<TX, TW, 1><<<blocks, 32 * kWideWarps, 0, s>>>(
         static_cast<const TX*>(x), static_cast<const TW*>(w),
-        static_cast<TX*>(y), rstd, rows, f, eps);
+        static_cast<YOf<TX, TW>*>(y), rstd, rows, f, eps);
   return (int)cudaGetLastError();
 }
 
@@ -635,10 +644,11 @@ int launch_bwd(int vec, const void* x, const void* w, const float* rstd,
 
 }  // namespace
 
-// dtypes: 0 = float32, 1 = bfloat16 (x_dtype for x, y, dy, dx; w_dtype for
-// w and dw). vec = 1: f is a multiple of 16 / sizeof(x) elements and every
-// pointer is aligned to the bytes one access moves (16 for x, 32 for an
-// f32 w beside bf16 x), so each thread moves 16 bytes of x per access;
+// dtypes: 0 = float32, 1 = bfloat16 (x_dtype for x, dy, dx; w_dtype for w
+// and dw; y is bf16 when both are, else f32). vec = 1: f is a multiple of
+// 16 / sizeof(x) elements and every pointer is aligned to the bytes one
+// access moves (16 for x, 32 for an f32 w or y beside bf16 x), so each
+// thread moves 16 bytes of x per access;
 // vec = 0: single elements. rows >= 1, f >= 1.
 // Returns cudaGetLastError() after the launches (0 = success); they are
 // asynchronous on `stream`.

@@ -32,8 +32,10 @@ Two implementations of one function:
   projection (``x @ w``, or the plain dequant-matmul) and the plain
   ragged attention — off the TPU the JAX engine runs exactly that body;
 - the CUDA kernel ``csrc/prefill_megakernel.cu`` (see its header): one
-  persistent cooperative launch per layer whose phases are split by
-  grid-wide barriers, projections on the tensor cores.
+  persistent launch per layer, in clusters, whose seven phases are split
+  by grid-wide barriers: projections on wgmma fed by TMA rings with their
+  epilogues (rope and the pool write, silu * up, the residuals) in
+  registers, attention on mma.sync.
 
 The wrappers choose by where ``h`` lies: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises. There is no
@@ -62,8 +64,7 @@ _NULL_PAGE = 0
 _FUSED_MATS = ("qkv", "o", "gateup", "down")
 
 #: the kernel's phases per launch, in order (``stamps`` of a launch)
-PHASES = ("norm", "q|k|v", "rope+append", "attention", "combine", "o",
-          "h2+norm", "gate|up", "act", "down", "out")
+PHASES = ("norm", "q|k|v", "attention", "o", "h2+norm", "gate|up", "down")
 
 
 def _chk(name, x, dtype, shape, device, align=16):
@@ -334,22 +335,60 @@ def fused_prefill_model(layers, h, k_pages, v_pages, tbls, pre, q_starts,
 # the CUDA launch
 # ---------------------------------------------------------------------------
 
-def _k_split(units, K, grid, bk):
-    """K chunks (whole ``bk`` tiles, none empty) of one projection phase
-    with ``units`` tiles per chunk: the fewest that keep >= 90% of the
-    grid's slots busy, else the best share up to 32."""
-    kt = -(-K // bk)
-    best = (0.0, 1)
-    for ks in range(1, min(kt, 32) + 1):
-        if (ks - 1) * -(-kt // ks) >= kt:
-            continue                              # an empty last chunk
-        n = units * ks
-        share = n / (-(-n // grid) * grid)
-        if share >= 0.9:
-            return ks
-        if share > best[0]:
-            best = (share, ks)
-    return best[1]
+#: tensor maps (128 bytes each) of weights and scratch buffers, keyed by
+#: what they encode: (pointer, element bytes, columns, rows, row bytes,
+#: box); encoded once, so a model-scope step encodes nothing
+_TMAPS: "collections.OrderedDict" = collections.OrderedDict()
+_MAX_TMAPS = 1024
+#: the launch's scratch (x, q, o, act, h2) and its tensor maps, per
+#: (device, dtype, T, D, H dh, F): launches on a stream run one after the
+#: other, so they share it
+_SCRATCH: "collections.OrderedDict" = collections.OrderedDict()
+_MAX_SCRATCH = 8
+
+
+def _tmap(lib, x, cols, rows, box_cols, box_rows):
+    """The tensor map of a row-major ``[rows, cols]`` bf16 or int8 tensor
+    ``x`` in boxes of ``box_cols x box_rows`` (128- or 64-byte swizzle)."""
+    es = x.element_size()
+    key = (x.data_ptr(), es, cols, rows, box_cols, box_rows)
+    m = _TMAPS.get(key)
+    if m is None:
+        buf = ctypes.create_string_buffer(128)
+        err = lib.prefill_megakernel_encode(es, x.data_ptr(), cols, rows,
+                                            cols * es, box_cols, box_rows,
+                                            buf)
+        if err != 0:
+            raise RuntimeError(f"prefill_megakernel: tensor map encoding "
+                               f"failed: CUDA error {err}")
+        m = _TMAPS[key] = buf.raw
+        while len(_TMAPS) > _MAX_TMAPS:
+            _TMAPS.popitem(last=False)
+    else:
+        _TMAPS.move_to_end(key)
+    return m
+
+
+def _scratch(lib, dev, dtype, T, D, Hd, Fh, bm, bk):
+    """``(buffers, maps)``: x, q, o, act (hidden type) and h2 (f32), and
+    for bf16 the tensor maps of x, o and act (empty for f32)."""
+    key = (dev.index, dtype, T, D, Hd, Fh)
+    hit = _SCRATCH.get(key)
+    if hit is None:
+        bufs = [torch.empty((T, n), dtype=dtype, device=dev)
+                for n in (D, Hd, Hd, Fh)]
+        bufs.append(torch.empty((T, D), dtype=torch.float32, device=dev))
+        maps = b""
+        if dtype == torch.bfloat16:
+            maps = b"".join(_tmap(lib, b, n, T, bk, bm)
+                            for b, n in ((bufs[0], D), (bufs[2], Hd),
+                                         (bufs[3], Fh)))
+        hit = _SCRATCH[key] = (bufs, maps)
+        while len(_SCRATCH) > _MAX_SCRATCH:
+            _SCRATCH.popitem(last=False)
+    else:
+        _SCRATCH.move_to_end(key)
+    return hit
 
 
 def _launch_cuda(fused, h, Kp, Vp, k_scales, v_scales, tbls, pre, q_starts,
@@ -380,21 +419,24 @@ def _launch_cuda(fused, h, Kp, Vp, k_scales, v_scales, tbls, pre, q_starts,
     lib = _library()
     limits = (ctypes.c_int * 9)()
     lib.prefill_megakernel_limits(limits)
-    bm, bn, bk, split, max_splits, max_rows, max_dh, phases, max_blocks = \
-        list(limits)
-    if H % Hkv or dh > max_dh or dh % 4 or q_block < 1 or T % q_block or \
-            T // q_block > max_blocks or H // Hkv * q_block > max_rows:
+    bm, bn, bk, _, max_dh, phases, max_blocks, max_rows, _ = list(limits)
+    f32_rows = dtype == torch.float32 and H // Hkv * q_block > max_rows
+    if H % Hkv or dh > max_dh or dh % 16 or q_block < 1 or T % q_block or \
+            T // q_block > max_blocks or f32_rows:
         raise ValueError(f"prefill_megakernel takes head_dim <= {max_dh} (a "
-                         f"multiple of 4), whole kv-head groups, T a multiple "
-                         f"of q_block, at most {max_blocks} q blocks and "
-                         f"{max_rows} query rows per q block and kv head; got "
-                         f"H {H}, Hkv {Hkv}, dh {dh}, T {T}, q_block "
-                         f"{q_block}")
+                         f"multiple of 16), whole kv-head groups, T a "
+                         f"multiple of q_block, at most {max_blocks} q blocks "
+                         f"and, for float32, {max_rows} query rows per q "
+                         f"block and kv head; got H {H}, Hkv {Hkv}, dh {dh}, "
+                         f"T {T}, q_block {q_block}")
     Fh = F2 // 2
+    step = 16 if quant_w else 8        # 16-byte rows for the tensor maps
     for n in (H * dh, Hkv * dh, D, Fh):
-        if n % 8:
+        if n % step:
             raise ValueError(f"prefill_megakernel needs every projection "
-                             f"width a multiple of 8, got {n}")
+                             f"width a multiple of {step} "
+                             f"({'int8' if quant_w else 'fp'} weights), got "
+                             f"{n}")
     _chk("h", h, dtype, (1, T, D), dev)
     _chk("block_tables", tbls, torch.int32, (R, pps), dev, 4)
     for name, x in (("q_starts", q_starts), ("q_lens", q_lens),
@@ -409,18 +451,22 @@ def _launch_cuda(fused, h, Kp, Vp, k_scales, v_scales, tbls, pre, q_starts,
               "down": (Fh, D)}
     ptrs = [_chk(k, fused[k], dtype, (D,), dev, 4)
             for k in ("ln1", "ln2")]
-    scales = []
+    scales, wmaps = [], []
+    tc = dtype == torch.bfloat16
     for k in _FUSED_MATS:
         w = fused[k]
         if quant_w:
             if w.rows != shapes[k][0]:
                 raise ValueError(f"{k}: {w.rows} rows, want {shapes[k][0]}")
-            ptrs.append(_chk(k, w.qdata, torch.int8, shapes[k], dev, 8))
-            scales.append(_chk(f"{k} scale", w.scale, torch.float32,
+            w, sc = w.qdata, w.scale
+            ptrs.append(_chk(k, w, torch.int8, shapes[k], dev))
+            scales.append(_chk(f"{k} scale", sc, torch.float32,
                                  (shapes[k][1],), dev, 4))
         else:
             ptrs.append(_chk(k, w, dtype, shapes[k], dev))
             scales.append(0)
+        if tc:
+            wmaps.append(_tmap(lib, w, shapes[k][1], shapes[k][0], bn, bk))
     ptrs += scales
     pool_dtype = torch.int8 if quant_kv else dtype
     ptrs += [_chk("k_pages", Kp, pool_dtype, (Hkv, P, ps, dh), dev),
@@ -436,38 +482,21 @@ def _launch_cuda(fused, h, Kp, Vp, k_scales, v_scales, tbls, pre, q_starts,
     grid = _grid(lib.prefill_megakernel_grid, dev, key)
     # the int8 pool's k and v were projected outside: only q here
     nq = H * dh if quant_kv else nqkv
-    mt = -(-T // bm)
-    ks = (_k_split(mt * (nq // bn + (nq % bn > 0)), D, grid, bk),
-          _k_split(mt * -(-D // bn), H * dh, grid, bk),
-          _k_split(mt * -(-F2 // bn), D, grid, bk),
-          _k_split(mt * -(-D // bn), Fh, grid, bk))
-    nb = T // q_block
-    S = min(max_splits, -(-pps * ps // split))
-    item = h.element_size()
-    # scratch, in floats: x (hidden type), GEMM partials, roped q, the
-    # attention splits, o and act (hidden type), h2
-    sizes = [-(-T * D * item // 4),
-             max(ks[0] * T * nq, ks[1] * T * D, ks[2] * T * F2, ks[3] * T * D),
-             T * H * dh, nb * Hkv * S * (H // Hkv) * q_block * (dh + 2),
-             -(-T * H * dh * item // 4), -(-T * Fh * item // 4), T * D]
-    sizes = [-(-s // 4) * 4 for s in sizes]            # 16-byte aligned
-    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    offs, at = [], 0
-    for s in sizes:
-        offs.append(scratch.data_ptr() + 4 * at)
-        at += s
+    bufs, xmaps = _scratch(lib, dev, dtype, T, D, H * dh, Fh, bm, bk)
     h_out = torch.empty_like(h)
     bar = _barrier(dev)
     args = ptrs + [h.data_ptr(), h_out.data_ptr(), tbls.data_ptr(),
                    q_starts.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
                    pre.block_row.data_ptr(), pre.slot.data_ptr(),
-                   pre.cos.data_ptr(), pre.sin.data_ptr(), *offs,
-                   bar.data_ptr(), 0 if stamps is None else stamps.data_ptr()]
-    dims = [T, D, H, Hkv, dh, Fh, P, ps, pps, R, q_block, nq, *ks, S]
+                   pre.cos.data_ptr(), pre.sin.data_ptr(),
+                   *(b.data_ptr() for b in bufs), bar.data_ptr(),
+                   0 if stamps is None else stamps.data_ptr()]
+    dims = [T, D, H, Hkv, dh, Fh, P, ps, pps, R, q_block, nq]
+    maps = b"".join(wmaps) + xmaps if tc else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.prefill_megakernel(
         *key, (ctypes.c_ulonglong * len(args))(*args),
-        (ctypes.c_int * len(dims))(*dims), float(eps),
+        (ctypes.c_int * len(dims))(*dims), maps, float(eps),
         float(1.0 / dh ** 0.5), grid, stream)
     if err != 0:
         raise RuntimeError(f"prefill_megakernel launch failed: CUDA error "
@@ -486,10 +515,13 @@ def _library():
         lib.prefill_megakernel_grid.restype = i
         lib.prefill_megakernel_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.prefill_megakernel_limits.restype = None
+        lib.prefill_megakernel_encode.argtypes = [i, p, i, i,
+                                                  ctypes.c_longlong, i, i, p]
+        lib.prefill_megakernel_encode.restype = i
         lib.prefill_megakernel.argtypes = [
             i, i, i, ctypes.POINTER(ctypes.c_ulonglong),
-            ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_float, i,
-            p]
+            ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_float,
+            ctypes.c_float, i, p]
         lib.prefill_megakernel.restype = i
     return lib
 

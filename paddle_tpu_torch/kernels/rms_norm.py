@@ -3,11 +3,14 @@
 Over the last axis of ``x [..., f]`` with a weight ``w [f]``:
 
 - forward: ``rstd = rsqrt(mean(x²) + eps)`` per row in f32 and
-  ``y = x · rstd · w``, multiplied in f32 and cast to x's dtype last
-  (the Pallas ``_fwd_kernel``'s rounding); ``rstd`` is kept in f32;
+  ``y = x · rstd · w``, multiplied in f32 and cast last (the Pallas
+  ``_fwd_kernel``'s rounding) to x's and w's promoted dtype
+  (:func:`y_dtype`: f32 unless both are bf16, as jnp promotes the
+  reference's ``_rms_norm_reference``); ``rstd`` is kept in f32;
 - backward: ``x̂ = x · rstd``,
   ``dx = rstd · (dy·w − x̂ · mean(dy·w·x̂))`` in x's dtype and
-  ``dw = Σ_rows dy · x̂`` in w's dtype.
+  ``dw = Σ_rows dy · x̂`` in w's dtype; ``dy`` is taken in x's dtype, as
+  the Pallas ``_bwd_kernel`` takes it.
 
 Two implementations of each:
 
@@ -31,8 +34,7 @@ have no counterpart: the kernel picks its own launch shape.
 Rounding differs from the reference's training default
 ``_rms_norm_reference`` (``paddle_tpu/nn/functional/norm.py:45``), which
 divides by ``sqrt`` and casts to x's dtype before the ``· w``: for f32
-inputs the two differ in rounding only; for bf16 ``x`` with an f32 ``w``
-the reference's output is promoted to f32 where this one is bf16.
+inputs the two differ in rounding only, for bf16 by up to 2 ulps.
 """
 from __future__ import annotations
 
@@ -56,12 +58,17 @@ _SMS = 132
 _BWD_BLOCKS_PER_SM = 1
 
 
+def y_dtype(x, w):
+    """The forward's output dtype: x's and w's promoted."""
+    return torch.promote_types(x.dtype, w.dtype)
+
+
 def rms_norm_fwd_reference(x2, w, eps):
-    """Plain forward over rows ``x2 [r, f]``: ``(y, rstd)``, y in x's
-    dtype, rstd f32 ``[r, 1]``."""
+    """Plain forward over rows ``x2 [r, f]``: ``(y, rstd)``, y in
+    :func:`y_dtype`, rstd f32 ``[r, 1]``."""
     xf = x2.float()
     rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (xf * rstd * w.float()).to(x2.dtype), rstd
+    return (xf * rstd * w.float()).to(y_dtype(x2, w)), rstd
 
 
 def rms_norm_bwd_reference(x2, w, rstd, dy2):
@@ -107,13 +114,13 @@ def _vec(f, *ts):
 
 def rms_norm_fwd(x2, w, eps):
     """Launch the forward kernel over rows ``x2 [r, f]`` (CUDA):
-    ``(y, rstd)``, y contiguous in x's dtype, rstd f32 ``[r, 1]``."""
+    ``(y, rstd)``, y contiguous in :func:`y_dtype`, rstd f32 ``[r, 1]``."""
     _check(x2, w)
     if x2.device.type != "cuda":
         raise ValueError(f"the rms_norm kernels run on cuda tensors, got "
                          f"{x2.device}")
     r, f = x2.shape
-    y = torch.empty((r, f), dtype=x2.dtype, device=x2.device)
+    y = torch.empty((r, f), dtype=y_dtype(x2, w), device=x2.device)
     rstd = torch.empty((r, 1), dtype=torch.float32, device=x2.device)
     if r == 0:
         return y, rstd
@@ -201,7 +208,7 @@ class RMSNormFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x2, w, rstd = ctx.saved_tensors
-        dy2 = _rows(dy)
+        dy2 = _rows(dy.to(x2.dtype))
         if x2.device.type == "cpu":
             dx, dw = rms_norm_bwd_reference(x2, w, rstd, dy2)
         else:
@@ -238,4 +245,4 @@ def _library():
 
 __all__ = ["RMSNormFunction", "bwd_threads", "dw_chunks", "rms_norm",
            "rms_norm_bwd", "rms_norm_bwd_reference", "rms_norm_fwd",
-           "rms_norm_fwd_reference"]
+           "rms_norm_fwd_reference", "y_dtype"]

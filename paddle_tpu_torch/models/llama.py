@@ -17,8 +17,8 @@ hand-written rms_norm kernels (``nn.RMSNorm``). Under
 each decoder layer is recomputed whole in backward
 (``distributed.fleet.recompute``), as the reference's unrolled path
 does; the selective ``dots_saveable`` policy belongs to the scanned
-``LayerStack`` (ROADMAP A5). Serving reads the same parameters through
-``generation.extract_params`` (detached views) under
+``LayerStack`` (ROADMAP item 'nn'). Serving reads the same parameters
+through ``generation.extract_params`` (detached views) under
 ``torch.inference_mode``, so it records no graph, and normalises with
 the serving bodies' own ``generation._rms_norm``.
 """

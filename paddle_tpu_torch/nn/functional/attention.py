@@ -25,10 +25,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     fewer heads. Returns ``[b, s, hq, d]`` in the (cast) query dtype."""
     if attn_mask is not None:
         raise NotImplementedError("attention masks are not ported yet "
-                                  "(ROADMAP A2)")
+                                  "(ROADMAP item 'nn')")
     if dropout_p and training:
         raise NotImplementedError("attention dropout is not ported yet "
-                                  "(ROADMAP A2)")
+                                  "(ROADMAP item 'nn')")
     q, k, v = amp_cast_inputs("scaled_dot_product_attention", query, key,
                               value)
     with torch.autocast(q.device.type, enabled=False):
@@ -43,7 +43,7 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     """``paddle.nn.functional.flash_attention``: ``(out, None)``."""
     if return_softmax:
         raise NotImplementedError("flash_attention(return_softmax=True) is "
-                                  "not ported yet (ROADMAP A2)")
+                                  "not ported yet (ROADMAP item 'nn')")
     return scaled_dot_product_attention(query, key, value, None, dropout,
                                         causal, training), None
 

@@ -20,10 +20,10 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
             label_smoothing or axis not in (-1, input.dim() - 1):
         raise NotImplementedError("cross_entropy: class weights, soft "
                                   "labels, label smoothing and other axes "
-                                  "are not ported yet (ROADMAP A2)")
+                                  "are not ported yet (ROADMAP item 'nn')")
     if reduction not in ("mean", "sum"):
         raise NotImplementedError(f"cross_entropy reduction {reduction!r} "
-                                  f"is not ported yet (ROADMAP A2)")
+                                  f"is not ported yet (ROADMAP item 'nn')")
     logp = torch.log_softmax(input.float(), dim=-1)
     valid = label != ignore_index
     safe = torch.where(valid, label, torch.zeros_like(label)).long()

@@ -12,11 +12,12 @@ to float32 first (``rms_norm`` is on the black list).
 
 The kernel multiplies ``x · rstd · w`` in f32 and casts last; the
 reference's ``_rms_norm_reference`` casts to x's dtype before the
-``· w`` (and promotes a bf16 x with an f32 weight to f32). ROADMAP
-queue C lists the difference as by design.
+``· w``. ROADMAP queue C lists the difference as by design. The output
+dtype is the reference's: x's and the weight's promoted (a bf16 x with
+an f32 weight gives f32).
 
 ``layer_norm``, ``batch_norm`` and the other norms are not ported yet
-(ROADMAP A5).
+(ROADMAP item 'nn').
 """
 from __future__ import annotations
 

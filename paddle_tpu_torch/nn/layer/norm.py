@@ -1,7 +1,7 @@
 """Normalization layers — counterpart of the subset of ``paddle_tpu/nn/layer/norm.py`` that Llama training runs.
 
 ``RMSNorm`` only; ``LayerNorm``, ``GroupNorm`` and the batch norms are
-not ported yet (ROADMAP A5).
+not ported yet (ROADMAP item 'nn').
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         if weight_attr is not None:
             raise NotImplementedError("RMSNorm(weight_attr=...) is not "
-                                      "ported yet (ROADMAP A5)")
+                                      "ported yet (ROADMAP item 'nn')")
         self._epsilon = epsilon
         self.weight = nn.Parameter(torch.ones(
             hidden_size, device=resolve_device(device), dtype=dtype))

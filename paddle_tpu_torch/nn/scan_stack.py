@@ -12,7 +12,8 @@ does.
 
 Not ported yet: :class:`LayerStack`, the scanned stack of
 ``FLAGS_scan_layers``, where ``dots_saveable`` saves the matrix
-products' outputs and recomputes only the elementwise tail (ROADMAP A5).
+products' outputs and recomputes only the elementwise tail (ROADMAP item
+'nn').
 Setting that flag raises.
 """
 from __future__ import annotations
@@ -31,12 +32,12 @@ def _check_remat_policy(v):
 def _check_scan_layers(v):
     if v:
         raise NotImplementedError("FLAGS_scan_layers (nn.LayerStack) is not "
-                                  "ported yet (ROADMAP A5)")
+                                  "ported yet (ROADMAP item 'nn')")
 
 
 define_flag("scan_layers", bool, False,
             "build decoder stacks as one scanned nn.LayerStack: not ported "
-            "yet (ROADMAP A5); only False is accepted",
+            "yet (ROADMAP item 'nn'); only False is accepted",
             on_set=_check_scan_layers)
 define_flag("remat_policy", str, "none",
             "activation rematerialization of decoder stacks: none (save "

@@ -7,10 +7,11 @@ kernel for CUDA buckets and its plain version for CPU ones
 parameter by ``weight_decay=0.01``, decoupled; Adam's weight decay is
 coupled (added to the gradient); the step count ``t`` starts at 1.
 
-Not ported yet, each raising ``NotImplementedError``: learning-rate
-schedulers and ``grad_clip`` (ROADMAP A4), AdamW's ``lr_ratio`` and
-``apply_decay_param_fun`` (the fused path's per-element aux vectors,
-ROADMAP A4), regularizer objects as ``weight_decay`` (ROADMAP A4).
+Not ported yet, each raising ``NotImplementedError`` and each part of
+ROADMAP item 'optimizer/': learning-rate schedulers and
+``grad_clip``, AdamW's ``lr_ratio`` and ``apply_decay_param_fun`` (the
+fused path's per-element aux vectors), regularizer objects as
+``weight_decay``.
 """
 from __future__ import annotations
 
@@ -27,16 +28,17 @@ class Optimizer:
                 not isinstance(learning_rate, (int, float)):
             raise NotImplementedError(
                 "only a float learning rate is ported; LRScheduler is not "
-                "yet (ROADMAP A4)")
+                "yet (ROADMAP item 'optimizer/')")
         if parameters is None:
             raise ValueError("parameters must be provided")
         if grad_clip is not None:
             raise NotImplementedError("grad_clip is not ported yet "
-                                      "(ROADMAP A4)")
+                                      "(ROADMAP item 'optimizer/')")
         if weight_decay is not None and not isinstance(weight_decay,
                                                        (int, float)):
             raise NotImplementedError("regularizer objects as weight_decay "
-                                      "are not ported yet (ROADMAP A4)")
+                                      "are not ported yet (ROADMAP item "
+                                      "'optimizer/')")
         self._lr = float(learning_rate)
         self._weight_decay = float(weight_decay or 0.0)
         self._parameter_list = list(parameters)
@@ -75,7 +77,7 @@ class Optimizer:
         if self._fused_engine is not None:
             self._fused_engine.step(self.get_lr(), self._step_count)
 
-    def _fused_flat_update(self, bucket, lr, t):
+    def _fused_flat_update(self, bucket, lr, t, spans=None):
         raise NotImplementedError
 
     def clear_grad(self, set_to_zero=True):
@@ -102,11 +104,12 @@ class Adam(Optimizer):
     def _state_names(self):
         return ("moment1", "moment2")
 
-    def _fused_flat_update(self, bucket, lr, t):
+    def _fused_flat_update(self, bucket, lr, t, spans=None):
         """One fused-AdamW launch over the bucket: the step's
         ``[lr, 1 - beta1^t, 1 - beta2^t]`` go to the bucket's device
         tensor, then the kernel (or, on the CPU, its plain version)
-        updates param and moments in place."""
+        updates param and moments in place; ``spans``, a span table of
+        the present parameters, masks the others."""
         if bucket.flat_p.dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(
                 f"fused AdamW buckets are float32 or bfloat16, got "
@@ -118,7 +121,7 @@ class Adam(Optimizer):
                     bucket.state["moment2"], bucket.scalars,
                     beta1=self._beta1, beta2=self._beta2, eps=self._eps,
                     weight_decay=self._weight_decay,
-                    decoupled=self._decoupled)
+                    decoupled=self._decoupled, spans=spans)
 
 
 class AdamW(Adam):
@@ -132,7 +135,8 @@ class AdamW(Adam):
         if lr_ratio is not None or apply_decay_param_fun is not None:
             raise NotImplementedError(
                 "AdamW lr_ratio / apply_decay_param_fun (per-parameter aux "
-                "vectors of the fused path) are not ported yet (ROADMAP A4)")
+                "vectors of the fused path) are not ported yet (ROADMAP "
+                "item 'optimizer/')")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip, lazy_mode, multi_precision,
                          name)

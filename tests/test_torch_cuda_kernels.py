@@ -638,6 +638,95 @@ def test_fused_adamw_wrapper_rejects_what_it_does_not_take(cuda):
         tfw.fused_adamw(big[::2], p.clone(), p.clone(), p.clone(), sc)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_adamw_masked_spans_match_plain_version(cuda, dtype):
+    """A span table (some parameters absent) on an odd-length bucket:
+    bitwise the plain masked version, and the absent elements (values
+    and moments) byte-identical before and after; one launch."""
+    from paddle_tpu_torch.kernels import fused_adamw as tfw
+    n = 100_003
+    g = torch.Generator().manual_seed(4)
+    p = torch.randn(n, generator=g).to(cuda, dtype)
+    gr = (torch.randn(n, generator=g) * 1e-2).to(cuda, dtype)
+    m = (torch.randn(n, generator=g) * 1e-3).to(cuda)
+    v = (torch.rand(n, generator=g) * 1e-5).to(cuda)
+    spans = [(0, 5), (8, 4093), (8200, 1), (16384, 50000), (99992, 11)]
+    table = tfw.span_table(spans, dtype, cuda)
+    sc = torch.tensor(tfw.adamw_scalars(1e-3, 3, 0.9, 0.999), device=cuda)
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+              decoupled=True, spans=table)
+    got = [x.clone() for x in (p, m, v)]
+    reset_launch_counts()
+    tfw.fused_adamw(got[0], gr, got[1], got[2], sc, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_adamw"] == 1
+    want = [x.clone() for x in (p, m, v)]
+    tfw.fused_adamw_reference(want[0], gr, want[1], want[2], sc, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    mask = torch.zeros(n, dtype=torch.bool, device=cuda)
+    for a, ln in spans:
+        mask[a:a + ln] = True
+    for a, b in zip(got, (p, m, v)):
+        assert torch.equal(a[~mask], b[~mask])
+        assert not torch.equal(a[mask], b[mask])
+
+
+class _Branches(torch.nn.Module):
+    """Three linear maps; ``c`` takes part only when asked."""
+
+    def __init__(self):
+        super().__init__()
+        g = torch.Generator().manual_seed(5)
+        self.a, self.b, self.c = (torch.nn.Linear(16, 16) for _ in range(3))
+        with torch.no_grad():
+            for prm in self.parameters():
+                prm.copy_(torch.randn(prm.shape, generator=g) * 0.2)
+
+    def forward(self, x, use_c):
+        y = self.b(torch.tanh(self.a(x)))
+        return (self.c(y) if use_c else y).square().mean()
+
+
+def _masked_train(dev):
+    model = _Branches().to(dev)
+    opt = pt.AdamW(learning_rate=1e-2, parameters=model.parameters())
+    x = torch.from_numpy(np.random.RandomState(1).randn(8, 16)
+                         .astype(np.float32)).to(dev)
+    model.b.weight.requires_grad_(False)         # frozen after the build
+    step = pt.TrainStep(model, lambda x, use_c: model(x, use_c), opt)
+    held = {}
+    for i in range(3):
+        use_c = i != 1                            # c: no gradient at step 1
+        if i == 1:
+            held = {k: q.detach().clone() for k, q in
+                    model.named_parameters() if k.startswith(("b.w", "c."))}
+        step(x, use_c)
+        if i == 1:
+            for k, q in model.named_parameters():
+                if k in held:
+                    assert torch.equal(q.detach(), held[k]), k
+    return {k: q.detach().cpu() for k, q in model.named_parameters()}
+
+
+@pytest.mark.cuda
+def test_train_step_masks_absent_parameters_on_the_card(cuda):
+    """A frozen weight and a layer that sits out one step keep their
+    values on that step on both devices (bitwise), and 3 steps on the
+    card match the CPU (f32 sums in another order: 1e-5)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launch_counts()
+    on_card = _masked_train(cuda)
+    assert LAUNCHES["fused_adamw"] == 3
+    on_cpu = _masked_train("cpu")
+    assert torch.equal(on_card["b.weight"], on_cpu["b.weight"])
+    for k in on_card:
+        np.testing.assert_allclose(on_card[k].numpy(), on_cpu[k].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+
+
 def _tiny_train(dev, steps=3, amp=False, remat=False, accumulate_steps=1):
     cfg = pt.llama_tiny_config(num_hidden_layers=2, num_key_value_heads=2,
                                hidden_size=128, num_attention_heads=2,
@@ -1135,6 +1224,46 @@ def test_prefill_megakernel_model_scope_matches_plain_version(cuda, pool,
                 _close(a[:, 1:], b[:, 1:], dtype)
 
 
+#: rows packing to T = 64 and T = 128 (one spare q block closes each)
+PREFILL_T_ROWS = {64: [(32, 40), (1, 17), (13, 60), (0, 0)],
+                  128: [(64, 100), (1, 33), (40, 90), (1, 5), (0, 0)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(4, 4, 64), (8, 2, 64)],
+                         ids=["mha", "gqa"])
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("weights", ["bf16", "int8"])
+@pytest.mark.parametrize("T", sorted(PREFILL_T_ROWS))
+def test_prefill_megakernel_twice_bitwise_at_full_token_tiles(
+        cuda, T, weights, pool, heads):
+    """The tensor-core layer (TMA + wgmma projections, the K split of o
+    and down over a cluster, attention on mma.sync) at T = 64 and a
+    whole 128-token tile: two launches bitwise equal (h and the pools),
+    and within the plain version's tolerance."""
+    from paddle_tpu_torch.kernels import prefill_megakernel as pmk
+    quant_w, quant_kv = weights == "int8", pool == "int8"
+    fused, h, pools, meta, kw = _prefill_fixture(
+        cuda, torch.bfloat16, heads, quant_w=quant_w, quant_kv=quant_kv,
+        rows=PREFILL_T_ROWS[T])
+    assert h.shape[1] == T
+    runs = []
+    for _ in range(2):
+        kp, vp, ks, vs = _clone_pools(pools)[0]
+        reset_launch_counts()
+        runs.append(pmk.fused_prefill_layer(fused[0], h, kp, vp, *meta,
+                                            k_scales=ks, v_scales=vs, **kw))
+        torch.cuda.synchronize()
+        assert LAUNCHES["prefill_megakernel"] == 1
+    for a, b in zip(*runs):
+        assert a is None or torch.equal(a, b)
+    kp, vp, ks, vs = _clone_pools(pools)[0]
+    want = pmk._reference_prefill_layer(
+        fused[0], h, kp, vp, *meta, num_kv_heads=heads[1],
+        head_dim=heads[2], page_size=16, k_scales=ks, v_scales=vs, **kw)
+    _close(runs[0][0], want[0], torch.bfloat16)
+
+
 @pytest.mark.cuda
 def test_prefill_megakernel_rejects_what_it_does_not_take(cuda):
     from paddle_tpu_torch.kernels import prefill_megakernel as pmk
@@ -1162,7 +1291,27 @@ def test_prefill_megakernel_rejects_what_it_does_not_take(cuda):
     int4["o"] = w4
     with pytest.raises(NotImplementedError, match="int4"):
         pmk.fused_prefill_layer(int4, h, kp, vp, *meta, **kw)
-    assert LAUNCHES["prefill_megakernel"] == 0
+    # the tensor-core limits: head_dim a multiple of 16 (mma.sync k
+    # steps), int8 weight widths a multiple of 16 (16-byte tensor-map
+    # rows); on the CUDA cores, at most 64 query rows per q block and kv
+    # head, which bf16 (m16 tiles) does not need
+    f24, h24, p24, m24, kw24 = _prefill_fixture(cuda, torch.bfloat16,
+                                                (4, 4, 24))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pmk.fused_prefill_layer(f24[0], h24, *p24[0][:2], *m24, **kw24)
+    f8, h8, p8, m8, kw8 = _prefill_fixture(cuda, torch.bfloat16, (4, 4, 32),
+                                           quant_w=True, D=264)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pmk.fused_prefill_layer(f8[0], h8, *p8[0][:2], *m8, **kw8)
+    for dtype, ok in ((torch.float32, False), (torch.bfloat16, True)):
+        fw, hw, pw, mw, kww = _prefill_fixture(cuda, dtype, (16, 1, 32))
+        if ok:
+            pmk.fused_prefill_layer(fw[0], hw, *pw[0][:2], *mw, **kww)
+            torch.cuda.synchronize()
+        else:
+            with pytest.raises(ValueError, match="64 query rows"):
+                pmk.fused_prefill_layer(fw[0], hw, *pw[0][:2], *mw, **kww)
+    assert LAUNCHES["prefill_megakernel"] == 1
 
 
 @pytest.mark.cuda
@@ -1267,12 +1416,29 @@ def test_rms_norm_kernels_match_plain_version(cuda, shape, dtypes):
     assert torch.equal(dw, dw2) and torch.equal(dx, dx2)   # deterministic
     py, prstd = trn.rms_norm_fwd_reference(x, w, 1e-5)
     pdx, pdw = trn.rms_norm_bwd_reference(x, w, rstd, dy)
-    assert (y.dtype, dx.dtype, dw.dtype) == (xdt, xdt, wdt)
+    ydt = torch.promote_types(xdt, wdt)
+    assert (y.dtype, dx.dtype, dw.dtype) == (ydt, xdt, wdt)
     err = ((rstd - prstd).abs() / prstd).max().item()
     assert err <= 1e-5, err
     _rms_close(y, py, xdt, summed=False)
     _rms_close(dx, pdx, xdt, summed=True)
     _rms_close(dw, pdw, wdt, summed=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["1b", "odd", "wide"])
+def test_rms_norm_bf16_x_with_f32_weight_returns_f32(cuda, shape):
+    """x and w promoted, as the reference's ``_rms_norm_reference``: an
+    f32 y from the kernel, its rows rounded nowhere before the store."""
+    from paddle_tpu_torch.kernels import rms_norm as trn
+    x, w, _ = _rms_case(cuda, *RMS_SHAPES[shape], torch.bfloat16,
+                        torch.float32)
+    y = pt.nn.functional.rms_norm(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and y.shape == x.shape
+    py, _ = trn.rms_norm_fwd_reference(x, w, 1e-5)
+    assert py.dtype == torch.float32
+    _rms_close(y, py, torch.float32, summed=False)
 
 
 @pytest.mark.cuda
