@@ -39,7 +39,8 @@ Phases, each of which must pass (any failure exits non-zero):
    launches bitwise equal; the decode megakernel at one
    full-width 7B layer (8 rows at the decode step's kv lengths 49-632):
    bf16 weights with the self-kv contract, int8 weights, an int8 pool,
-   and model scope over 2 layers with a bf16 and an int8 pool (the pools
+   and the append in the kernel over 2 layers (model scope) and 1 (a
+   layer-scope burst's launch) with a bf16 and an int8 pool (the pools
    after the kernel's own append held to the plain append: pages within
    1 int8 step, scales 1e-6 relative); the prefill megakernel at one
    full-width 7B layer over a T = 128 mixed step (a 64-token chunk, a
@@ -64,8 +65,10 @@ Phases, each of which must pass (any failure exits non-zero):
 6. phase ``[7b-burst]``: the same load with ``burst_tokens=8`` in four
    engines (bf16, and int8 projections + int8 pool, each at layer and at
    model scope): every request finishes, the decode megakernel launches
-   32 times per burst iteration at layer scope and once at model scope
-   (the ragged steps keep their kernels' counts), 2 bursts are traced;
+   32 times per burst iteration at layer scope and once at model scope,
+   each launch writing the token's K/V into the pool (no dequant-matmul
+   launch from a burst; the ragged steps keep their kernels' counts), 2
+   bursts are traced;
 7. phase ``[7b-fused]``: the same load through
    ``prefill_megakernel="fused"`` three more times (bf16; int8
    projections + int8 pool; bf16 in bursts of 8 at model scope): every
@@ -101,8 +104,10 @@ Phases, each of which must pass (any failure exits non-zero):
     behind an L2 of clean lines; for the decode and prefill
     megakernels, which no single PyTorch call matches, the unfused
     path's time for the same
-    layer), and the int8 pool's segmented append (plain PyTorch) at the
-    7B step's shapes.
+    layer; the decode megakernel's phases each beside its bound, and
+    ``torch.matmul`` of the 8 rows by the layer's 7 bf16 weights as the
+    yardstick of its projections), and the int8 pool's segmented append
+    (plain PyTorch) at the 7B step's shapes.
 
 It prints the card's name and power limit, the kernels' JSON line, and
 last the line ``{"ok": true, "device": {...}}``. Without CUDA, or away
@@ -366,6 +371,7 @@ def phase_build():
     report_matmul_build(_build)
     report_rms_build(_build)
     report_prefill_build(_build)
+    report_decode_build(_build)
     report_adamw_build(_build)
 
 
@@ -455,6 +461,52 @@ def report_prefill_build(_build, name="prefill_megakernel", strict=True):
     if strict and (len(tc) != 4 or bad):
         raise AssertionError(f"prefill megakernel bf16 instantiations without "
                              f"tensor-core instructions or with spills: {tc}")
+    return rows
+
+
+#: a decode megakernel's mangled name: its template arguments (hidden,
+#: weight and pool types)
+DECODE_SYMBOL = re.compile(r"decode_megakernelI(\w+?)EEv")
+
+
+def report_decode_build(_build, name="decode_megakernel", strict=True):
+    """Per decode megakernel instantiation of ``csrc/<name>.cu``:
+    registers, spills and HMMA/HGMMA count, and the launch geometry.
+    ``strict``: raises unless every bf16 instantiation (bf16 or int8
+    weights) has tensor-core instructions and no instantiation spills.
+    Returns the rows."""
+    ptx, mma = build_info(_build, name)
+    limits = (ctypes.c_int * 6)()
+    strip = (ctypes.c_int * 3)()
+    lib = _build.load(name)
+    lib.decode_megakernel_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.decode_megakernel_limits(limits)
+    lib.decode_megakernel_strip.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)]
+    rows = []
+    for sym in sorted(set(ptx) | set(mma)):
+        m = DECODE_SYMBOL.search(sym)
+        if not m:
+            continue
+        info = ptx.get(sym, {})
+        rows.append(dict(variant=prefill_variant_name(m.group(1)),
+                         registers=info.get("registers"),
+                         spills=info.get("spills"), mma=mma.get(sym, 0)))
+        hidden, weights = rows[-1]["variant"].split("/")[:2]
+        lib.decode_megakernel_strip(int(hidden == "bf16"),
+                                    int(weights == "int8"), strip)
+        log(f"[build] {name}<{rows[-1]['variant']}>: {rows[-1]['registers']} "
+            f"registers, spills (store, load bytes) {rows[-1]['spills']}, "
+            f"{rows[-1]['mma']} HMMA/HGMMA instructions; weight strips of "
+            f"{strip[0]} columns in k tiles of {strip[1]}, {limits[4]} "
+            f"phases a layer")
+    tc = [r for r in rows if r["variant"].startswith("bf16")]
+    bad = [r for r in rows if r["spills"] != (0, 0)] + \
+        [r for r in tc if r["mma"] == 0]
+    if strict and (len(tc) != 4 or len(rows) != 8 or bad):
+        raise AssertionError(f"decode megakernel instantiations without "
+                             f"tensor-core instructions (bf16) or with "
+                             f"spills: {rows}")
     return rows
 
 
@@ -1215,6 +1267,18 @@ def build_7b(torch):
     return model
 
 
+def serve_prompts(V):
+    """The 7B load's prompts (``SERVE_LENS`` tokens; the 2nd, 200 tokens,
+    opens with a 128-token prefix) and the late request (145 tokens: the
+    same prefix, so it forks the 2nd's pages)."""
+    rng = np.random.RandomState(0)
+    prefix = rng.randint(0, V, (128,)).tolist()
+    prompts = [rng.randint(0, V, (n,)).tolist() for n in SERVE_LENS]
+    prompts[1] = prefix + prompts[1][:72]
+    late = prefix + rng.randint(0, V, (17,)).tolist()
+    return prompts, late
+
+
 def serve_7b(torch, model, tag, per_step, **knobs):
     """Serve the 8-request 7B load through ``LLMEngine(**knobs)``, the
     launch counts reset just before the load and read just after; every
@@ -1231,12 +1295,8 @@ def serve_7b(torch, model, tag, per_step, **knobs):
     log(f"[{tag}] engine {knobs or 'bf16'} + pool of {eng.pool.num_pages} "
         f"{str(eng.pool.dtype).replace('torch.', '')} pages built in "
         f"{time.perf_counter() - t0:.1f} s (set-up)")
-    rng = np.random.RandomState(0)
     V = cfg.vocab_size
-    prefix = rng.randint(0, V, (128,)).tolist()
-    prompts = [rng.randint(0, V, (n,)).tolist() for n in SERVE_LENS]
-    prompts[1] = prefix + prompts[1][:72]            # 200 tokens, donor
-    late = prefix + rng.randint(0, V, (17,)).tolist()   # 145, forks it
+    prompts, late = serve_prompts(V)
     plans = []
     orig = eng.scheduler.prepare_step
 
@@ -2001,6 +2061,15 @@ def mega_inputs(torch, quant_kv, n_layers, seed):
         torch.tensor(DECODE_KV, dtype=torch.int32, device="cuda")
 
 
+def mega_append_at(torch, tbl, kv_lens):
+    """Each row's append slot, as a burst passes it: the token at
+    position ``kv_len - 1`` goes to its page and offset."""
+    R = kv_lens.shape[0]
+    pos = kv_lens - 1
+    page = tbl[torch.arange(R, device="cuda"), (pos // PAGE).long()]
+    return page.contiguous(), (pos % PAGE).to(torch.int32)
+
+
 def mega_err(torch, got, want, name="decode megakernel"):
     """(max |diff|, tolerance) of a bf16 megakernel output."""
     err = (got.float() - want.float()).abs().max().item()
@@ -2014,7 +2083,8 @@ def mega_err(torch, got, want, name="decode megakernel"):
 def phase_megakernel_parity(torch):
     """The decode megakernel against its plain version at one full-width
     7B layer (8 rows, kv 49-632, bf16 hidden states), every contract, and
-    at model scope over 2 layers. Returns the worst |diff|."""
+    with the append in the kernel over 2 layers (model scope) and 1 (a
+    layer-scope burst's launch). Returns the worst |diff|."""
     from paddle_tpu_torch.kernels import decode_megakernel as dmk
     from paddle_tpu_torch.serving.engine import _quantized_append
     kw = dict(eps=1e-5, theta=10000.0, num_heads=32)
@@ -2040,19 +2110,20 @@ def phase_megakernel_parity(torch):
             + (f", k {errs[1][0]:.3e}, v {errs[2][0]:.3e}"
                if len(errs) == 3 else ""))
         del lyr, pools, args, got, want
-    for pool in ("bf16", "int8"):
+    # 2 layers in one launch (model scope) and one (a layer-scope burst's
+    # launch, the pool write in the kernel)
+    for pool, n_layers in (("bf16", 2), ("int8", 2), ("bf16", 1),
+                           ("int8", 1)):
         quant = pool == "int8"
-        layers = mega_layers(torch, 2, False, seed=23)
-        h, pools, tbl, kv_lens = mega_inputs(torch, quant, 2, seed=24)
+        layers = mega_layers(torch, n_layers, False, seed=23)
+        h, pools, tbl, kv_lens = mega_inputs(torch, quant, n_layers, seed=24)
         R = h.shape[0]
-        pos = kv_lens - 1
-        page = tbl[torch.arange(R, device="cuda"), (pos // PAGE).long()]
-        append_at = (page.contiguous(), (pos % PAGE).to(torch.int32))
+        append_at = mega_append_at(torch, tbl, kv_lens)
         runs = []
         for side in ("kernel", "plain"):
             ps_ = [[x.clone() if x is not None else None for x in p]
                    for p in pools]
-            rec = torch.zeros((2, 2, R, 32, 128), device="cuda")
+            rec = torch.zeros((n_layers, 2, R, 32, 128), device="cuda")
             kss = [p[2] for p in ps_] if quant else None
             vss = [p[3] for p in ps_] if quant else None
             if side == "kernel":
@@ -2075,7 +2146,7 @@ def phase_megakernel_parity(torch):
         if quant:
             # the plain append of the kernel's own K/V from the same pools
             steps, rel = 0, 0.0
-            for li in range(2):
+            for li in range(n_layers):
                 for j in range(2):
                     P, S = pools[li][j].clone(), pools[li][2 + j].clone()
                     _quantized_append(P, S, krec[li, j].to(torch.bfloat16)
@@ -2100,8 +2171,9 @@ def phase_megakernel_parity(torch):
             if diff > err_kv:
                 raise AssertionError(f"bf16 pools after the append: {diff}")
             pool_note = f"; bf16 pools {diff:.3e}"
-        log(f"[parity] decode_megakernel model scope, 2 full-width 7B layers, "
-            f"{pool} pool, one launch: max|kernel - plain| h {err_h:.3e} "
+        log(f"[parity] decode_megakernel, {n_layers} full-width 7B "
+            f"layer(s) with the append, {pool} pool, one launch: "
+            f"max|kernel - plain| h {err_h:.3e} "
             f"(tol {tol:.3e}), appended K/V {err_kv:.3e}{pool_note}")
         del layers, pools, runs
     torch.cuda.empty_cache()
@@ -2136,12 +2208,8 @@ def serve_7b_burst(torch, model, tag, knobs):
     layers = cfg.num_hidden_layers
     eng = pt.LLMEngine(model, max_len=1024, page_size=16, max_num_seqs=8,
                        burst_tokens=BURST_TOKENS, **knobs)
-    rng = np.random.RandomState(0)
     V = cfg.vocab_size
-    prefix = rng.randint(0, V, (128,)).tolist()
-    prompts = [rng.randint(0, V, (n,)).tolist() for n in SERVE_LENS]
-    prompts[1] = prefix + prompts[1][:72]
-    late = prefix + rng.randint(0, V, (17,)).tolist()
+    prompts, late = serve_prompts(V)
     kinds = []                 # per step: burst length, or 0 (ragged)
     sch = eng.scheduler
     orig_burst = sch.prepare_burst
@@ -2215,11 +2283,9 @@ def serve_7b_burst(torch, model, tag, knobs):
         want["ragged_paged_attention_merge"] = layers * ragged
     if quant:
         # ragged steps: 7 projections per layer (fused: the k|v one of
-        # the append outside the kernel); layer-scope bursts: the k and v
-        # projections of the append that precedes each megakernel
-        want["int8_matmul"] = layers * ((1 if fused else 7) * ragged
-                                        + (2 * iters if scope == "layer"
-                                           else 0))
+        # the append outside the kernel); bursts at either scope append
+        # inside the megakernel and launch none
+        want["int8_matmul"] = layers * (1 if fused else 7) * ragged
     if launches != want or snap["burst_launches"] != bursts or not bursts:
         raise AssertionError(f"[{tag}] launches {launches} != {want} "
                              f"({bursts} bursts of {iters} iterations, "
@@ -2250,8 +2316,9 @@ def serve_7b_burst(torch, model, tag, knobs):
 
 def phase_serve_7b_burst(torch, model, per_token):
     """Phase [7b-burst]: the four burst engines; greedy tokens equal to
-    the per-token run of the same weights are informational (random
-    weights give nearly flat logits)."""
+    the per-token run of the same weights are informational, with where
+    each request first leaves the per-token run and how close the two
+    candidates were there (:func:`burst_divergence`)."""
     runs = {}
     greedy = [i for i in range(len(SERVE_LENS) + 1) if i not in SERVE_SAMPLED]
     for tag, (knobs, ref) in BURST_RUNS.items():
@@ -2266,16 +2333,132 @@ def phase_serve_7b_burst(torch, model, per_token):
             f"run's: {same} of {total} ({100 * same / total:.1f}%, "
             f"informational)")
         runs[tag] = run
+    burst_divergence(torch, model, per_token, runs, greedy)
     return runs
 
 
+def plain_step_logits(torch, p, cfg, ids, n):
+    """The bf16 logits ``[n, V]`` that predict the last ``n`` tokens of
+    ``ids`` and the one after them: a plain full-sequence forward of the
+    engine's weights (``x @ w`` projections, PyTorch's causal attention,
+    the port's plain norm and rope), no kernel of the port."""
+    from paddle_tpu_torch.models.generation import _logits, _rms_norm, _rope
+    H, d, eps, theta = (cfg.num_attention_heads, cfg.head_dim,
+                        cfg.rms_norm_eps, cfg.rope_theta)
+    s, dev = len(ids), p["embed"].device
+    pos = torch.arange(s, device=dev)[None]
+    x = p["embed"][torch.tensor(ids, device=dev)][None]         # [1, s, D]
+    for lyr in p["layers"]:
+        a = _rms_norm(x, lyr["ln1"], eps)
+        q, k, v = ((a @ lyr[m]).reshape(1, s, -1, d) for m in "qkv")
+        q, k = _rope(q, pos, theta, d), _rope(k, pos, theta, d)
+        if k.shape[2] != H:
+            k, v = (t.repeat_interleave(H // t.shape[2], 2) for t in (k, v))
+        o = torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True).transpose(1, 2).reshape(1, s, H * d)
+        x = x + o @ lyr["o"]
+        a = _rms_norm(x, lyr["ln2"], eps)
+        x = x + (torch.nn.functional.silu(a @ lyr["gate"]) * (a @ lyr["up"])) \
+            @ lyr["down"]
+    return _logits(p, _rms_norm(x[0, s - n:], p["norm"], eps), cfg).float()
+
+
+def burst_divergence(torch, model, per_token, runs, greedy):
+    """Why a burst engine's greedy tokens leave the per-token run's. One
+    plain forward (:func:`plain_step_logits`) per greedy request over its
+    prompt and the per-token run's tokens gives every generation step's
+    logits, teacher-forced along that run. Printed: how many steps the
+    per-token run's own tokens differ from that forward's argmax (two
+    implementations of the same bf16 function), and per burst engine
+    and request the first step that differs, the forward's logit of the
+    per-token run's token minus the burst's there (the margin), and the
+    forward's top-1 minus top-2 gap there and its median over the
+    request's steps. The forward has bf16 weights and pool: for the int8
+    engines it is the nearest plain function, not theirs."""
+    from paddle_tpu_torch.models.generation import extract_params
+    p, cfg = extract_params(model), model.config
+    prompts, late = serve_prompts(cfg.vocab_size)
+    prompts = prompts + [late]
+    out = {}
+    for ref in dict.fromkeys(r for _, r in BURST_RUNS.values()):
+        toks = per_token[ref]["tokens"]
+        steps = {}
+        own = []
+        with torch.inference_mode():
+            for i in greedy:
+                n = len(toks[i])
+                lg = plain_step_logits(torch, p, cfg, prompts[i]
+                                       + toks[i][:-1], n)       # [n, V]
+                top = lg.topk(2, -1)
+                gap = (top.values[:, 0] - top.values[:, 1]).tolist()
+                steps[i] = (lg, gap)
+                own += [(j, gap[j]) for j in range(n)
+                        if int(top.indices[j, 0]) != toks[i][j]]
+        own_gaps = [g for _, g in own] or [0.0]
+        log(f"[7b-burst] the per-token {ref} run against a plain bf16 "
+            f"forward teacher-forced along its tokens: "
+            f"{len(own)} of {sum(len(toks[i]) for i in greedy)} steps "
+            f"differ (the forward's top-1 minus top-2 gap there: median "
+            f"{float(np.median(own_gaps)):.4f}, max {max(own_gaps):.4f})")
+        for tag, (_, r) in BURST_RUNS.items():
+            if r != ref:
+                continue
+            rows = []
+            for i in greedy:
+                lg, gap = steps[i]
+                a, b = toks[i], runs[tag]["tokens"][i]
+                j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                         None)
+                med = float(np.median(gap))
+                if j is None:
+                    rows.append(dict(request=i, first=None, median_gap=med))
+                    continue
+                rows.append(dict(request=i, first=j, median_gap=med,
+                                 margin=float(lg[j, a[j]] - lg[j, b[j]]),
+                                 gap=gap[j]))
+            runs[tag]["divergence"] = rows
+            out[tag] = rows
+            log(f"[7b-burst {tag}] first step that differs from the per-"
+                f"token run, per greedy request (of 32): " + "; ".join(
+                    f"r{d['request']} none (median gap "
+                    f"{d['median_gap']:.4f})" if d["first"] is None else
+                    f"r{d['request']} step {d['first']} (margin "
+                    f"{d['margin']:.4f}, gap {d['gap']:.4f}, median gap "
+                    f"{d['median_gap']:.4f})" for d in rows))
+        del steps
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the decode megakernel's projection phases and their weights
+MEGA_PROJ_PHASES = {"q|k|v": ("q", "k", "v"), "o": ("o",),
+                    "gate|up": ("gate", "up"), "down": ("down",)}
+
+
+def mega_phase_bounds(lyr, kv_bytes):
+    """ms bound of each decode-megakernel phase that moves bytes: its
+    weights (int8 payload and scales) and, for attention, the K/V pages,
+    over the HBM rate."""
+    def nbytes(w):
+        if hasattr(w, "qdata"):
+            return w.qdata.numel() + 4 * w.scale.numel()
+        return w.numel() * w.element_size()
+    out = {k: 1e3 * sum(nbytes(lyr[m]) for m in ms) / HBM_BYTES_PER_S
+           for k, ms in MEGA_PROJ_PHASES.items()}
+    out["attention"] = 1e3 * kv_bytes / HBM_BYTES_PER_S
+    return out
+
+
 def phase_time_megakernel(torch):
-    """Row 10 at the 7B decode shape (8 rows, kv 49-632): the layer-scope
-    megakernel (bf16 weights and pool, self_kv; and int8 weights with an
-    int8 pool) beside its bound, its plain version and the per-token
-    path's time for the same layer (cuBLAS projections, the ragged
-    kernel, elementwise: ``spec_decode._ragged_fp_layer`` on the engine's
-    128-token decode step)."""
+    """Row 10 at the 7B decode shape (8 rows, kv 49-632): the launch a
+    layer-scope burst makes (``fused_decode_model([layer], ...,
+    append_at=..., rope_tables=...)``: one layer, each row's K/V written
+    into its pool slot in the kernel; bf16 weights and pool, and int8
+    weights with an int8 pool) beside its bound, its plain version and
+    the per-token path's time for the same layer (cuBLAS projections,
+    the ragged kernel, elementwise: ``spec_decode._ragged_fp_layer`` on
+    the engine's 128-token decode step)."""
     from paddle_tpu_torch.kernels import decode_megakernel as dmk
     from paddle_tpu_torch.kernels.paged_attention import ragged_block_row
     from paddle_tpu_torch.models.llama import llama2_7b_config
@@ -2290,25 +2473,42 @@ def phase_time_megakernel(torch):
         h, pools, tbl, kv_lens = mega_inputs(torch, quant, 1, seed=32)
         kp, vp, ks, vs = pools[0]
         self_kv = not quant
-        args = (lyr, h, kp, vp, tbl, kv_lens)
-        kern = lambda: dmk.fused_decode_layer(       # noqa: E731
-            *args, self_kv=self_kv, k_scales=ks, v_scales=vs, **kw)
-        plain = lambda: dmk._reference_layer(        # noqa: E731
-            *args, self_kv=self_kv, k_scales=ks, v_scales=vs, **kw)
-        err = max(mega_err(torch, a, b)[0] for a, b in zip(kern(), plain())
-                  if a is not None)
-        ms = time_ms(torch, kern, 50)
-        plain_ms = time_ms(torch, plain, 5, "decode megakernel plain",
-                           waits_ok=True)
+        append_at = mega_append_at(torch, tbl, kv_lens)
+        rope = dmk._rope_tables(kv_lens, cfg.rope_theta, dh)
+        one = lambda t: None if t is None else [t]        # noqa: E731
+
+        def kern(kp, vp, ks, vs):
+            return dmk.fused_decode_model(
+                [lyr], h, [kp], [vp], tbl, kv_lens, self_kv=self_kv,
+                k_scales=one(ks), v_scales=one(vs), append_at=append_at,
+                rope_tables=rope, **kw)[0]
+
+        def plain(kp, vp, ks, vs):
+            return dmk._plain_model(
+                [lyr], h, [kp], [vp], one(ks), one(vs), tbl, kv_lens,
+                kw["eps"], kw["theta"], kw["num_heads"], self_kv, None,
+                None, append_at, None)
+
+        def fresh():            # the pool as it was, for each side
+            return [None if t is None else t.clone() for t in pools[0]]
+        got = kern(*fresh())
+        torch.cuda.synchronize()
+        err = mega_err(torch, got, plain(*fresh()))[0]
+        ms = time_ms(torch, lambda: kern(kp, vp, ks, vs), 50)
+        plain_ms = time_ms(torch, lambda: plain(kp, vp, ks, vs), 5,
+                           "decode megakernel plain", waits_ok=True)
         wbytes = sum(w.nbytes if hasattr(w, "nbytes") and not
                      isinstance(w, torch.Tensor) else
                      w.numel() * w.element_size() for w in lyr.values())
+        # attention reads the cached positions (fp: the current token is
+        # attended in registers; int8: from its page, after the append)
         pos_read = sum(n - (1 if self_kv else 0) for n in DECODE_KV)
         kv_item = 1 if quant else 2
         kv_bytes = pos_read * 32 * dh * 2 * kv_item
         if quant:       # two f32 scales per (head, page) read
             kv_bytes += sum(-(-n // PAGE) for n in DECODE_KV) * 32 * 2 * 4
-        io = R * D * 2 * 2 + (R * 32 * dh * 2 * 2 if self_kv else 0)
+        # h in and out, each row's K and V written into its slot
+        io = R * D * 2 * 2 + R * 32 * dh * 2 * kv_item
         params = sum((w.qdata if quant else w).numel()
                      for k, w in lyr.items() if k not in ("ln1", "ln2"))
         flops = 2 * R * params + 4 * sum(DECODE_KV) * dh * H
@@ -2318,15 +2518,25 @@ def phase_time_megakernel(torch):
                              device="cuda")
         phases = dict.fromkeys(dmk.PHASES, 0.0)
         for _ in range(10):
-            dmk._launch_cuda([lyr], h, [kp], [vp], None if ks is None
-                             else [ks], None if vs is None else [vs], tbl,
-                             kv_lens, self_kv=self_kv, stamps=stamps, **kw)
+            dmk._launch_cuda([lyr], h, [kp], [vp], one(ks), one(vs), tbl,
+                             kv_lens, self_kv=self_kv, append_at=append_at,
+                             rope_tables=rope, stamps=stamps, **kw)
             t = stamps.tolist()
             for i, name in enumerate(dmk.PHASES):
                 phases[name] += (t[i + 1] - t[i]) / 1e6 / 10
+        phase_bound = mega_phase_bounds(lyr, kv_bytes)
         res = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                    max_abs_err=err, weight_bytes=wbytes, kv_bytes=kv_bytes,
-                   phase_ms=phases)
+                   phase_ms=phases, phase_bound_ms=phase_bound)
+        if not quant:
+            # the yardstick of the projections: cuBLAS at M = 8 over the
+            # layer's 7 bf16 weights (timed here; the port never calls it)
+            ws = [lyr[k] for k in dmk._LAYER_MATS]
+            xs = {n: torch.randn(R, n, device="cuda", dtype=torch.bfloat16)
+                  for n in {w.shape[0] for w in ws}}
+            res["matmul_yardstick_ms"] = time_ms(
+                torch, lambda: [torch.matmul(xs[w.shape[0]], w) for w in ws],
+                50)
         if not quant:
             # the per-token path's layer on the same rows: the engine's
             # decode step packs 8 rows at q_block 8 into 128 tokens
@@ -2349,7 +2559,8 @@ def phase_time_megakernel(torch):
                 torch, ragged, 50, "per-token layer", waits_ok=True)
         out[label] = res
         log(f"[time] decode_megakernel 7B layer, {label} weights + {label} "
-            f"pool, 8 rows (kv {DECODE_KV[0]}-{DECODE_KV[-1]}): kernel "
+            f"pool, 8 rows (kv {DECODE_KV[0]}-{DECODE_KV[-1]}), the "
+            f"layer-scope burst's launch (K/V appended in the kernel): kernel "
             f"{ms:.4f} ms, bound {bms:.4f} ms ({by}: weights "
             f"{wbytes / 1e6:.2f} MB + K/V {kv_bytes / 1e6:.2f} MB), plain "
             f"{plain_ms:.4f} ms"
@@ -2359,9 +2570,17 @@ def phase_time_megakernel(torch):
             + f", max|diff| {err:.3e}")
         log(f"[time] decode_megakernel 7B layer, {label}: ms per phase, "
             f"each to the end of the barrier after it (device clock, 10 "
-            f"launches, L2 warm): "
-            + ", ".join(f"{k} {v:.4f}" for k, v in phases.items()))
-        del lyr, pools, args
+            f"launches, L2 warm), with its bound where it moves bytes: "
+            + ", ".join(f"{k} {v:.4f}" + (f" (bound {phase_bound[k]:.4f})"
+                                          if k in phase_bound else "")
+                        for k, v in phases.items()))
+        if "matmul_yardstick_ms" in res:
+            log(f"[time] yardstick: torch.matmul of the 8 rows by the "
+                f"layer's 7 bf16 weights (cuBLAS, M = 8): "
+                f"{res['matmul_yardstick_ms']:.4f} ms against the kernel's "
+                f"projection phases' "
+                f"{sum(phases[k] for k in MEGA_PROJ_PHASES):.4f} ms")
+        del lyr, pools, got
         torch.cuda.empty_cache()
     return out
 
@@ -2850,7 +3069,10 @@ def main() -> int:
         # no single PyTorch call computes a decoder layer: the per-token
         # path's time for the same layer stands beside it
         "per_token_layer_ms": m["per_token_layer_ms"],
-        "shape": "one 7B layer, 8 decode rows (kv 49-632), bf16, self_kv",
+        "phase_ms": m["phase_ms"], "phase_bound_ms": m["phase_bound_ms"],
+        "matmul_yardstick_ms": m["matmul_yardstick_ms"],
+        "shape": "one 7B layer, 8 decode rows (kv 49-632), bf16, the "
+                 "layer-scope burst's launch (append_at)",
         "int8": mega["int8"],
         "model_scope_launches": burst["bf16 model"]["launches"]
         ["decode_megakernel"],

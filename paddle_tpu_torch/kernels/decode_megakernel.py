@@ -17,11 +17,13 @@ Two KV contracts, as the reference's:
   amax requant must be visible to the attention), and pages hold all
   ``kv_len`` tokens.
 
-At model scope the pool write is the kernel's own: each layer writes the
-current token's K/V into its slot (``append_at``; an int8 pool runs the
-running-amax requantizing append of the engine's ``_quantized_append``
-in the kernel), and the layers' weights and pools are found through a
-device table of per-layer pointers, so nothing is stacked or copied.
+Through :func:`fused_decode_model` the pool write is the kernel's own,
+at either scope (one layer per launch, or every layer): each layer
+writes the current token's K/V into its slot (``append_at``; an int8
+pool runs the running-amax requantizing append of the engine's
+``_quantized_append`` in the kernel), and the layers' weights and pools
+are found through a device table of per-layer pointers, so nothing is
+stacked or copied.
 
 Two implementations of one function:
 
@@ -32,7 +34,9 @@ Two implementations of one function:
   the JAX engine runs exactly that body;
 - the CUDA kernel ``csrc/decode_megakernel.cu`` (see its header): one
   persistent cooperative launch whose phases are split by grid-wide
-  barriers, built by ``kernels/_build.py``.
+  barriers, the weights streamed by TMA tensor maps (a device table the
+  wrapper encodes once per set of weights) into tensor cores, built by
+  ``kernels/_build.py``.
 
 The wrappers choose by where ``h`` lies: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises. There is no
@@ -254,9 +258,10 @@ def _per_layer(x, n):
 def fused_decode_model(layers, h, k_pages, v_pages, block_tables, kv_lens,
                        *, eps, theta, num_heads, self_kv=True, k_scales=None,
                        v_scales=None, append_fn=None, quant_append_fn=None,
-                       append_at=None, appended=None):
+                       append_at=None, appended=None, rope_tables=None):
     """Whole-model decode step: the fused layer body over every layer.
-    On a CUDA device it is ONE launch for all layers.
+    On a CUDA device it is ONE launch for all layers (one layer: the
+    layer-scope launch, the pool write inside it).
 
     layers: :func:`stack_layer_params` output (leaves ``[L, ...]``) or a
         list of per-layer dicts (no copy); k_pages/v_pages: ``[L, Hkv, P,
@@ -276,7 +281,9 @@ def fused_decode_model(layers, h, k_pages, v_pages, block_tables, kv_lens,
       engine's append does. An int8 pool runs the engine's
       ``_quantized_append`` math.
     ``appended``: optional f32 ``[L, 2, R, Hkv, dh]`` that receives each
-    layer's appended K and V.
+    layer's appended K and V. ``rope_tables``: as
+    :func:`fused_decode_layer` (the kernel's; the plain version computes
+    its own).
 
     Returns ``(h_out, k_pages, v_pages, k_scales, v_scales)``, the pools
     updated (in place for ``append_at``; scales None for fp).
@@ -306,7 +313,7 @@ def fused_decode_model(layers, h, k_pages, v_pages, block_tables, kv_lens,
         h_out, _, _ = _launch_cuda(
             lyrs, h, kps, vps, kss, vss, block_tables, kv_lens, eps=eps,
             theta=theta, num_heads=num_heads, self_kv=self_kv,
-            append_at=append_at, appended=appended)
+            append_at=append_at, appended=appended, rope_tables=rope_tables)
     elif h.device.type == "cpu":
         h_out = _plain_model(lyrs, h, kps, vps, kss, vss, block_tables,
                              kv_lens, eps, theta, num_heads, self_kv,
@@ -377,15 +384,14 @@ def _plain_model(lyrs, h, kps, vps, kss, vss, block_tables, kv_lens, eps,
 # the CUDA launch
 # ---------------------------------------------------------------------------
 
-def _k_split(ntiles, K, grid, k_chunk):
-    """K chunks of one projection phase: the fewest (each at most
-    ``k_chunk`` long, none empty) that keep >= 90% of the grid's unit
-    slots busy, else the best share among a few more."""
-    lo = -(-K // k_chunk)
+def _k_split(ntiles, kt, grid, max_tiles):
+    """K chunks of one projection phase over ``kt`` k tiles: the fewest
+    (each at most ``max_tiles`` tiles, none empty) that keep >= 90% of the
+    grid's unit slots busy (a unit is a strip of ``ntiles`` and a chunk),
+    else the best share among a few more."""
+    lo = -(-kt // max_tiles)
     best = (0.0, lo)
-    for ks in range(lo, max(lo, min(lo + 31, K // 32)) + 1):
-        if (ks - 1) * -(-K // ks) >= K:
-            continue                              # an empty last chunk
+    for ks in range(lo, max(lo, min(lo + 31, kt)) + 1):
         units = ntiles * ks
         share = units / (-(-units // grid) * grid)
         if share >= 0.9:
@@ -397,8 +403,11 @@ def _k_split(ntiles, K, grid, k_chunk):
 
 _GRIDS: dict = {}
 _BARRIERS: dict = {}
+#: device tables by what they hold (pointers, tensor maps): a launch
+#: takes two, so a layer-scope model keeps two per layer and the bound
+#: holds 512 layers' before any is encoded again
 _TABLES: OrderedDict = OrderedDict()
-_MAX_TABLES = 64
+_MAX_TABLES = 1024
 
 
 def _grid(query, device, key):
@@ -425,20 +434,43 @@ def _barrier(device):
     return _BARRIERS[device.index]
 
 
-def _pointer_table(ptrs, device):
-    """The device copy of a per-layer pointer table, cached by its
-    content (the same pointers are the same table)."""
-    key = (device.index, tuple(ptrs))
+def _cached(key, make):
+    """A device table cached by what it holds (``_TABLES``, bounded)."""
     t = _TABLES.get(key)
     if t is None:
-        t = torch.tensor(ptrs, dtype=torch.int64).pin_memory() \
-            .to(device, non_blocking=True)
-        _TABLES[key] = t
+        t = _TABLES[key] = make()
         while len(_TABLES) > _MAX_TABLES:
             _TABLES.popitem(last=False)
     else:
         _TABLES.move_to_end(key)
     return t
+
+
+def _pointer_table(ptrs, device):
+    """The device copy of a per-layer pointer table, cached by its
+    content (the same pointers are the same table)."""
+    return _cached(("ptrs", device.index, tuple(ptrs)), lambda: torch.tensor(
+        ptrs, dtype=torch.int64).pin_memory().to(device, non_blocking=True))
+
+
+def _map_table(lib, key, mats, device):
+    """The device table of the layers' weight tensor maps (128 bytes
+    each, in the kernel's boxes for the variant ``key``), from ``mats``:
+    per map ``(pointer, element bytes, columns, rows)``; encoded once per
+    set of weights."""
+    def make():
+        raw = bytearray()
+        for ptr, es, cols, rows in mats:
+            buf = ctypes.create_string_buffer(128)
+            err = lib.decode_megakernel_encode(*key[:2], ptr, cols, rows,
+                                               cols * es, buf)
+            if err != 0:
+                raise RuntimeError(f"decode_megakernel: tensor map encoding "
+                                   f"failed: CUDA error {err}")
+            raw += buf.raw
+        return torch.frombuffer(raw, dtype=torch.uint8).pin_memory() \
+            .to(device, non_blocking=True)
+    return _cached(("maps", device.index, key, tuple(mats)), make)
 
 
 def _check(name, x, dtype, shape, device, align=16,
@@ -459,8 +491,8 @@ def _launch_cuda(lyrs, h, kps, vps, kss, vss, block_tables, kv_lens, *, eps,
                  stamps=None, rope_tables=None):
     """Check every operand and launch the kernel over ``lyrs`` (one layer:
     layer scope). Returns ``(h_out, k_cur, v_cur)``; k_cur/v_cur are
-    ``[R, Hkv*dh]`` for a layer-scope ``self_kv`` launch, else None.
-    ``stamps``: optional int64 ``[1 + len(PHASES) L]`` receiving the
+    ``[R, Hkv*dh]`` for a ``self_kv`` launch without ``append_at``, else
+    None. ``stamps``: optional int64 ``[1 + len(PHASES) L]`` receiving the
     device clock (ns) at the start and at the end of each phase of
     :data:`PHASES`."""
     dev = h.device
@@ -483,19 +515,23 @@ def _launch_cuda(lyrs, h, kps, vps, kss, vss, block_tables, kv_lens, *, eps,
     pps = block_tables.shape[1]
     F_ = (lyrs[0]["gate"].shape[1])
     lib = _library()
-    limits = (ctypes.c_int * 7)()
+    limits = (ctypes.c_int * 6)()
     lib.decode_megakernel_limits(limits)
-    max_rows, max_grp, max_dh, k_chunk, tile_n, split, phases = list(limits)
-    if H % Hkv or H // Hkv > max_grp or dh > max_dh or dh % 4 or \
-            R > max_rows or R < 1:
+    max_rows, max_grp, max_dh, split, phases, x_bytes = list(limits)
+    pool_es = 1 if quant_kv else h.element_size()
+    if H % Hkv or H // Hkv > max_grp or dh > max_dh or (dh * pool_es) % 16 \
+            or R > max_rows or R < 1:
         raise ValueError(f"decode_megakernel takes up to {max_rows} rows, "
                          f"{max_grp} query heads per kv head and head_dim "
-                         f"<= {max_dh} (a multiple of 4); got R {R}, H {H}, "
-                         f"Hkv {Hkv}, dh {dh}")
+                         f"<= {max_dh} (pool rows a multiple of 16 bytes); "
+                         f"got R {R}, H {H}, Hkv {Hkv}, dh {dh}")
+    # every width a multiple of 8 (x is staged 8 values at a time) and a
+    # weight row a multiple of 16 bytes (a tensor map's row pitch)
+    wmul = 16 if quant_w else 8
     for n in (H * dh, Hkv * dh, D, F_):
-        if n % 8:
+        if n % wmul:
             raise ValueError(f"decode_megakernel needs every projection "
-                             f"width a multiple of 8, got {n}")
+                             f"width a multiple of {wmul}, got {n}")
     _check("h", h, dtype, (R, D), dev)
     _check("block_tables", block_tables, torch.int32, (R, pps), dev, 4)
     _check("kv_lens", kv_lens, torch.int32, (R,), dev, 4)
@@ -503,9 +539,9 @@ def _launch_cuda(lyrs, h, kps, vps, kss, vss, block_tables, kv_lens, *, eps,
               "o": (H * dh, D), "gate": (D, F_), "up": (D, F_),
               "down": (F_, D)}
     pool_dtype = torch.int8 if quant_kv else dtype
-    ptrs = []
+    ptrs, mats = [], []
     for i, lyr in enumerate(lyrs):
-        row = [_check(f"layer {i} {k}", lyr[k], dtype, (D,), dev, 4)
+        row = [_check(f"layer {i} {k}", lyr[k], dtype, (D,), dev)
                for k in ("ln1", "ln2")]
         scales = []
         for k in _LAYER_MATS:
@@ -514,13 +550,16 @@ def _launch_cuda(lyrs, h, kps, vps, kss, vss, block_tables, kv_lens, *, eps,
                 if w.rows != shapes[k][0]:
                     raise ValueError(f"layer {i} {k}: {w.rows} rows, "
                                      f"want {shapes[k][0]}")
-                row.append(_check(f"layer {i} {k}", w.qdata, torch.int8,
-                                  shapes[k], dev, 8))
-                scales.append(_check(f"layer {i} {k} scale", w.scale,
+                w, s = w.qdata, w.scale
+                row.append(_check(f"layer {i} {k}", w, torch.int8, shapes[k],
+                                  dev))
+                scales.append(_check(f"layer {i} {k} scale", s,
                                      torch.float32, (shapes[k][1],), dev, 4))
             else:
                 row.append(_check(f"layer {i} {k}", w, dtype, shapes[k], dev))
                 scales.append(0)
+            mats.append((w.data_ptr(), w.element_size(), shapes[k][1],
+                         shapes[k][0]))
         row += scales
         row += [_check(f"layer {i} k_pages", kps[i], pool_dtype,
                        (Hkv, P, ps, dh), dev),
@@ -544,22 +583,30 @@ def _launch_cuda(lyrs, h, kps, vps, kss, vss, block_tables, kv_lens, *, eps,
                4)
     if stamps is not None:
         _check("stamps", stamps, torch.int64, (1 + phases * L,), dev, 8)
-    model_append = append_at is not None
-    with_kv = self_kv or model_append
-    layer_kv = self_kv and not model_append      # outputs k_cur/v_cur
+    append = append_at is not None
+    with_kv = self_kv or append
+    layer_kv = self_kv and not append      # outputs k_cur/v_cur
     key = (_DTYPE_CODE[dtype], int(quant_w), int(quant_kv))
     grid = _grid(lib.decode_megakernel_grid, dev, key)
     n_qkv = (H + (2 * Hkv if with_kv else 0)) * dh
-    tiles = lambda *ns: sum(-(-n // tile_n) for n in ns)     # noqa: E731
-    ks = (_k_split(tiles(H * dh, *((Hkv * dh,) * 2 if with_kv else ())), D,
-                   grid, k_chunk),
-          _k_split(tiles(D), H * dh, grid, k_chunk),
-          _k_split(tiles(F_, F_), D, grid, k_chunk),
-          _k_split(tiles(D), F_, grid, k_chunk))
+    strip = (ctypes.c_int * 3)()
+    lib.decode_megakernel_strip(*key[:2], strip)
+    uc, bk = strip[0], strip[1]
+    # the x window's k tiles at R rows: a unit's chunk stages once
+    rp = -(-R // 8) * 8
+    pad = 8 if dtype == torch.bfloat16 else 4
+    win = (x_bytes // (rp * h.element_size()) - pad) // bk
+    strips = lambda *ns: sum(-(-n // uc) for n in ns)     # noqa: E731
+    ks = (_k_split(strips(H * dh, *((Hkv * dh,) * 2 if with_kv else ())),
+                   -(-D // bk), grid, win),
+          _k_split(strips(D), -(-(H * dh) // bk), grid, win),
+          _k_split(strips(F_, F_), -(-D // bk), grid, win),
+          _k_split(strips(D), -(-F_ // bk), grid, win))
     S = -(-pps * ps // split)           # attention splits per row slot
     sizes = [ks[0] * R * n_qkv, R * (H + 2 * Hkv) * dh,
              R * Hkv * S * (H // Hkv) * (dh + 2), R * H * dh, ks[1] * R * D,
              R * D, ks[2] * R * 2 * F_, R * F_, ks[3] * R * D]
+    sizes = [-(-n // 4) * 4 for n in sizes]        # 16-byte aligned parts
     scratch = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     offs, at = [], 0
     for s in sizes:
@@ -576,14 +623,16 @@ def _launch_cuda(lyrs, h, kps, vps, kss, vss, block_tables, kv_lens, *, eps,
         k_cur = torch.empty((R, Hkv * dh), dtype=dtype, device=dev)
         v_cur = torch.empty_like(k_cur)
     table = _pointer_table(ptrs, dev)
+    maps = _map_table(lib, key, mats, dev)
     bar = _barrier(dev)
     addr = lambda t: 0 if t is None else t.data_ptr()     # noqa: E731
-    args = [table.data_ptr(), h.data_ptr(), h_out.data_ptr(), addr(k_cur),
-            addr(v_cur), block_tables.data_ptr(), kv_lens.data_ptr(),
-            cos.data_ptr(), sin.data_ptr(), addr(app_page), addr(app_off),
-            addr(appended), *offs, bar.data_ptr(), addr(stamps)]
+    args = [table.data_ptr(), maps.data_ptr(), h.data_ptr(),
+            h_out.data_ptr(), addr(k_cur), addr(v_cur),
+            block_tables.data_ptr(), kv_lens.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), addr(app_page), addr(app_off), addr(appended),
+            *offs, bar.data_ptr(), addr(stamps)]
     dims = [L, R, D, H, Hkv, dh, F_, P, ps, pps, *ks, int(self_kv),
-            int(with_kv), int(model_append), S]
+            int(with_kv), int(append), S]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.decode_megakernel(
         *key, (ctypes.c_ulonglong * len(args))(*args),
@@ -606,6 +655,12 @@ def _library():
         lib.decode_megakernel_grid.restype = i
         lib.decode_megakernel_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.decode_megakernel_limits.restype = None
+        lib.decode_megakernel_encode.argtypes = [i, i, p, i, i,
+                                                 ctypes.c_longlong, p]
+        lib.decode_megakernel_encode.restype = i
+        lib.decode_megakernel_strip.argtypes = [i, i,
+                                                ctypes.POINTER(ctypes.c_int)]
+        lib.decode_megakernel_strip.restype = i
         lib.decode_megakernel.argtypes = [
             i, i, i, ctypes.POINTER(ctypes.c_ulonglong),
             ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_float, i,

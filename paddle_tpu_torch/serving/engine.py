@@ -48,8 +48,9 @@ caught-up decode row, ``step()`` plans a burst
 (``Scheduler.prepare_burst``) and runs up to ``B`` decode iterations on
 the device with no device read: each iteration is the decode megakernel
 (``kernels/decode_megakernel.py``) per layer, or one launch for every
-layer at ``megakernel_scope="model"``, then the KV append, the final
-norm, the logits, the sample and the EOS/length gate. The host reads the
+layer at ``megakernel_scope="model"``, each layer writing the token's
+K/V into its pool slot inside the launch, then the final norm, the
+logits, the sample and the EOS/length gate. The host reads the
 device once, after the burst, and replays its tokens through the normal
 commit path. Prefill chunks and mixed steps stay ragged steps.
 
@@ -80,8 +81,8 @@ import torch.nn.functional as F
 
 from ..core.flags import GLOBAL_FLAGS
 from ..core.place import resolve_device
-from ..kernels.decode_megakernel import (_rope_tables, fused_decode_layer,
-                                         fused_decode_model, megakernel_mode)
+from ..kernels.decode_megakernel import (_rope_tables, fused_decode_model,
+                                         megakernel_mode)
 from ..kernels.paged_attention import (ragged_block_row,
                                        ragged_paged_attention)
 from ..kernels.prefill_megakernel import (fuse_layer_weights,
@@ -933,8 +934,7 @@ class LLMEngine:
         Returns ``(out [R, n_steps], gen [R], ok [R])``."""
         cfg, p, pool = self.cfg, self.params, self.pool
         R, ps, PPS = self.max_num_seqs, self.page_size, self.max_pages_per_seq
-        H, Hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                     cfg.head_dim)
+        H, d = cfg.num_attention_heads, cfg.head_dim
         eps, theta = cfg.rms_norm_eps, cfg.rope_theta
         quant = pool.quantized
         kw = dict(eps=eps, theta=theta, num_heads=H)
@@ -943,6 +943,13 @@ class LLMEngine:
         out = torch.zeros((R, n_steps), dtype=torch.int64, device=self.device)
         gen = torch.zeros_like(kv_lens)
         ok = torch.ones_like(live)
+        Kps, Vps = [K for K, _ in pool.kv], [V for _, V in pool.kv]
+        Kss = [a for a, _ in pool.kv_scales] if quant else None
+        Vss = [b for _, b in pool.kv_scales] if quant else None
+        # the layers of one launch: all of them (model scope) or one each
+        L = len(Kps)
+        groups = [slice(0, L)] if self.megakernel_scope == "model" else \
+            [slice(li, li + 1) for li in range(L)]
         for i in range(n_steps):
             h = p["embed"][tokens]                          # [R, hidden]
             pos = kv_lens                                   # append slot
@@ -951,44 +958,16 @@ class LLMEngine:
             off = pos % ps
             att_len = pos + 1           # attention covers the new token
             live_in = live
-            if self.megakernel_scope == "model":
+            # every layer of the iteration ropes at the same positions
+            kw["rope_tables"] = _rope_tables(att_len, theta, d)
+            for g in groups:
+                # each layer writes its K/V into the slot (an int8 pool:
+                # the running-amax append before the attention)
                 h = fused_decode_model(
-                    p["layers"], h, [K for K, _ in pool.kv],
-                    [V for _, V in pool.kv], tbls, att_len, self_kv=not quant,
-                    k_scales=[a for a, _ in pool.kv_scales] if quant else None,
-                    v_scales=[b for _, b in pool.kv_scales] if quant else None,
+                    p["layers"][g], h, Kps[g], Vps[g], tbls, att_len,
+                    self_kv=not quant, k_scales=Kss[g] if quant else None,
+                    v_scales=Vss[g] if quant else None,
                     append_at=(page, off), **kw)[0]
-            else:
-                # every layer of the iteration ropes at the same positions
-                kw["rope_tables"] = _rope_tables(att_len, theta, d)
-                for li, (lyr, (Kp, Vp)) in enumerate(zip(p["layers"],
-                                                         pool.kv)):
-                    if quant:
-                        # append first: the running-amax requant must be
-                        # visible to the attention
-                        Ks, Vs = pool.kv_scales[li]
-                        x = _rms_norm(h[None], lyr["ln1"], eps)[0]
-                        kc = _rope(_wmat(x, lyr["k"]).reshape(R, Hkv, d)[None],
-                                   pos[None], theta, d)[0]
-                        vc = _wmat(x, lyr["v"]).reshape(R, Hkv, d)
-                        _quantized_append(Kp, Ks, kc.transpose(0, 1), page,
-                                          off, ps, live)
-                        _quantized_append(Vp, Vs, vc.transpose(0, 1), page,
-                                          off, ps, live)
-                        h, _, _ = fused_decode_layer(
-                            lyr, h, Kp, Vp, tbls, att_len, self_kv=False,
-                            k_scales=Ks, v_scales=Vs, **kw)
-                    else:
-                        # the layer returns this token's k/v for the
-                        # scatter (lossless for fp pools)
-                        h, kc, vc = fused_decode_layer(
-                            lyr, h, Kp, Vp, tbls, att_len, self_kv=True, **kw)
-                        slot = (page * ps + off).long()
-                        npages = Kp.shape[1]
-                        Kp.view(Hkv, npages * ps, d)[:, slot] = \
-                            kc.transpose(0, 1)
-                        Vp.view(Hkv, npages * ps, d)[:, slot] = \
-                            vc.transpose(0, 1)
             hn = _rms_norm(h[None], p["norm"], eps)[0]
             logits = _logits(p, hn, cfg)                     # [R, V]
             ok = ok & (torch.isfinite(logits).all(-1) | ~live_in)

@@ -799,6 +799,10 @@ MEGA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: (H, Hkv, dh): GQA 4/1, MHA with a narrow head, a 7B head
 MEGA_HEADS = [(8, 2, 64), (4, 4, 32), (4, 4, 128)]
 
+#: kv lengths of the rows past the fixture's first 5 (up to 13 rows: two
+#: row groups of the kernel's mma, the second ragged)
+MEGA_MORE_KV = [7, 64, 65, 2, 40, 16, 80, 3]
+
 
 def _mega_fixture(dev, dtype, heads, *, quant_w=False, quant_kv=False,
                   layers=1, R=5, D=256, F=384, P=48, ps=16, seed=0):
@@ -828,8 +832,10 @@ def _mega_fixture(dev, dtype, heads, *, quant_w=False, quant_kv=False,
             else:
                 v.qdata, v.scale = v.qdata.to(dev), v.scale.to(dev)
         lyrs.append(lyr)
-    kv_lens = torch.tensor([5, 1, 17, 33, 90][:R], dtype=torch.int32)
+    kv_lens = torch.tensor(([5, 1, 17, 33, 90] + MEGA_MORE_KV)[:R],
+                           dtype=torch.int32)
     pps = 6
+    P = max(P, R * pps + 1)
     perm = torch.randperm(P - 1, generator=g) + 1
     tbl = torch.zeros((R, pps), dtype=torch.int32)
     for r, n in enumerate(kv_lens.tolist()):
@@ -892,22 +898,18 @@ def test_decode_megakernel_matches_plain_version(cuda, contract, heads,
             _close(a, b, dtype)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("pool", ["fp", "int8"])
-def test_decode_megakernel_model_scope_matches_plain_version(cuda, pool,
-                                                             dtype):
-    """Three layers in one launch, with a dead row: the hidden state, the
-    K/V each layer appended, and the pools. An int8 pool is held to the
-    plain append of the kernel's own K/V (pages within 1, scales 1e-6
+def _append_case(cuda, pool, dtype, quant_w, L):
+    """``fused_decode_model`` over L layers in one launch (L = 1: the
+    layer-scope launch of a burst), with a dead row, against
+    ``_plain_model`` on the same pools: the hidden state, the K/V each
+    layer appended, and the pools. An int8 pool is held to the plain
+    append of the kernel's own K/V (pages within 1, scales 1e-6
     relative); the null page is the plain version's dead-row target."""
     from paddle_tpu_torch.kernels import decode_megakernel as dmk
     from paddle_tpu_torch.serving.engine import _quantized_append
     quant = pool == "int8"
-    L = 3
     lyrs, h, pools, tbl, kv_lens, kw = _mega_fixture(
-        cuda, dtype, (8, 2, 64), quant_kv=quant, layers=L)
+        cuda, dtype, (8, 2, 64), quant_w=quant_w, quant_kv=quant, layers=L)
     R, Hkv, ps, dh = h.shape[0], 2, 16, 64
     pos = kv_lens - 1
     page = tbl[torch.arange(R, device=cuda), (pos // ps).long()].clone()
@@ -956,6 +958,85 @@ def test_decode_megakernel_model_scope_matches_plain_version(cuda, pool,
             assert (gp[:, 1:].int() - P[:, 1:].int()).abs().max() <= 1
             np.testing.assert_allclose(gs[:, 1:].cpu().numpy(),
                                        S[:, 1:].cpu().numpy(), rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+def test_decode_megakernel_model_scope_matches_plain_version(cuda, pool,
+                                                             dtype):
+    """Three layers in one launch (fp weights), with a dead row."""
+    _append_case(cuda, pool, dtype, False, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+def test_decode_megakernel_model_scope_int8_weights_match_plain_version(
+        cuda, pool, dtype):
+    """The int8-weight contracts at model scope (int8_w, int8_w_int8_kv):
+    three layers in one launch, with a dead row."""
+    _append_case(cuda, pool, dtype, True, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("quant_w", [False, True], ids=["fp_w", "int8_w"])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+def test_decode_megakernel_layer_scope_append_matches_plain_version(
+        cuda, pool, quant_w, dtype):
+    """A layer-scope burst launch (one layer, ``append_at``: the pool
+    write in the kernel) against the plain version on the same pools."""
+    _append_case(cuda, pool, dtype, quant_w, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("R", [8, 13])
+@pytest.mark.parametrize("contract", ["fp_self_kv", "int8_w_int8_kv"])
+def test_decode_megakernel_row_groups_match_plain_version(cuda, contract, R,
+                                                          dtype):
+    """8 rows (one row group of the mma's N) and 13 (two, the second
+    ragged): every group on the same staged weight tile."""
+    from paddle_tpu_torch.kernels import decode_megakernel as dmk
+    quant = contract == "int8_w_int8_kv"
+    lyrs, h, pools, tbl, kv_lens, kw = _mega_fixture(
+        cuda, dtype, (8, 2, 64), quant_w=quant, quant_kv=quant, R=R)
+    kp, vp, ks, vs = pools[0]
+    got = dmk.fused_decode_layer(lyrs[0], h, kp, vp, tbl, kv_lens,
+                                 self_kv=not quant, k_scales=ks, v_scales=vs,
+                                 **kw)
+    want = dmk._reference_layer(lyrs[0], h, kp, vp, tbl, kv_lens,
+                                self_kv=not quant, k_scales=ks, v_scales=vs,
+                                **kw)
+    for a, b in zip(got, want):
+        if a is not None:
+            _close(a, b, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("quant_w", [False, True], ids=["fp_w", "int8_w"])
+def test_decode_megakernel_ragged_tile_widths_match_plain_version(
+        cuda, quant_w, dtype):
+    """Widths that are no multiple of the 64-column tile or of the k tile
+    (hidden 272, intermediate 400): the tensor copies fill the edge boxes
+    with zeros."""
+    from paddle_tpu_torch.kernels import decode_megakernel as dmk
+    lyrs, h, pools, tbl, kv_lens, kw = _mega_fixture(
+        cuda, dtype, (4, 4, 32), quant_w=quant_w, D=272, F=400)
+    kp, vp, _, _ = pools[0]
+    got = dmk.fused_decode_layer(lyrs[0], h, kp, vp, tbl, kv_lens, **kw)
+    want = dmk._reference_layer(lyrs[0], h, kp, vp, tbl, kv_lens,
+                                self_kv=True, k_scales=None, v_scales=None,
+                                **kw)
+    for a, b in zip(got, want):
+        _close(a, b, dtype)
 
 
 @pytest.mark.cuda

@@ -357,11 +357,111 @@ def test_contract_errors_match_the_reference():
 
 
 def test_k_split_keeps_the_grid_busy_with_bounded_chunks():
-    # the 7B phases in 256-column tiles on a 264-block grid
-    for ntiles, K in ((48, 4096), (16, 4096), (86, 4096), (16, 11008)):
-        ks = tdmk._k_split(ntiles, K, 264, 1024)
-        assert -(-K // ks) <= 1024
-        units = ntiles * ks
-        assert units / (-(-units // 264) * 264) >= 0.85
-        assert (ks - 1) * -(-K // ks) < K            # no empty chunk
-    assert tdmk._k_split(1, 9, 264, 1024) <= 9
+    # the 7B phases in strips of 512 columns (bf16 and int8 weights) on a
+    # 132-block grid, in k tiles of 32 rows, chunks bounded by the x
+    # window at 8 rows (129 tiles), and of 256 columns in 64-row tiles
+    for (bk, win), strips in (((32, 129), (24, 8, 44, 8)),
+                              ((64, 64), (48, 16, 86, 16))):
+        for ntiles, K in zip(strips, (4096, 4096, 4096, 11008)):
+            kt = -(-K // bk)
+            ks = tdmk._k_split(ntiles, kt, 132, win)
+            assert -(-kt // ks) <= win
+            units = ntiles * ks
+            assert units / (-(-units // 132) * 132) >= 0.9
+            assert ks <= kt                          # no empty chunk
+    assert tdmk._k_split(1, 9, 132, 129) <= 9
+    assert tdmk._k_split(16, 344, 132, 20) >= 18     # bounded chunks first
+
+
+@pytest.mark.parametrize("quant_w", [False, True], ids=["fp_w", "int8_w"])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+def test_layer_scope_append_at_equals_the_old_burst_sequence(pool, quant_w):
+    """A layer-scope burst step is ``fused_decode_model([lyr], ...,
+    append_at=...)`` (the kernel writes the pool): on the CPU it leaves h,
+    the pages and the scales bitwise equal to the sequence the engine ran
+    before, with a dead row on the null page. fp pool: the layer with
+    ``self_kv`` then the slot scatter; int8 pool: the norm, k/v
+    projections and rope, two ``_quantized_append`` and the layer over the
+    appended pages."""
+    from paddle_tpu_torch.models.generation import _rms_norm, _rope, _wmat
+    layers, h, Kst, Vst, scales, tbls, kv_lens, page, off = _model_case(
+        pool, L=1)
+    lyr = _both_layers(layers[0], quant_w)[1]
+    page = page.copy()
+    page[1] = 0                                      # a dead row
+    live = torch.from_numpy(page != 0)
+    tp, to = torch.from_numpy(page), torch.from_numpy(off.copy())
+    R, Hkv, ps, d = 4, 2, 4, 16
+    th, tt, tk = (torch.from_numpy(a.copy()) for a in (h, tbls, kv_lens))
+    quant = pool == "int8"
+    runs = []
+    for form in ("old", "append_at"):
+        Kp, Vp = torch.from_numpy(Kst[0].copy()), torch.from_numpy(Vst[0].copy())
+        Ks = Vs = None
+        if quant:
+            Ks = torch.from_numpy(scales[0][0].copy())
+            Vs = torch.from_numpy(scales[1][0].copy())
+        if form == "append_at":
+            out = tdmk.fused_decode_model(
+                [lyr], th, [Kp], [Vp], tt, tk, self_kv=not quant,
+                k_scales=[Ks] if quant else None,
+                v_scales=[Vs] if quant else None, append_at=(tp, to),
+                rope_tables=tdmk._rope_tables(tk, KW["theta"], d), **KW)[0]
+        elif quant:
+            pos = tk - 1
+            x = _rms_norm(th[None], lyr["ln1"], KW["eps"])[0]
+            kc = _rope(_wmat(x, lyr["k"]).reshape(R, Hkv, d)[None],
+                       pos[None], KW["theta"], d)[0]
+            vc = _wmat(x, lyr["v"]).reshape(R, Hkv, d)
+            tengine._quantized_append(Kp, Ks, kc.transpose(0, 1), tp, to, ps,
+                                      live)
+            tengine._quantized_append(Vp, Vs, vc.transpose(0, 1), tp, to, ps,
+                                      live)
+            out = tdmk.fused_decode_layer(lyr, th, Kp, Vp, tt, tk,
+                                          self_kv=False, k_scales=Ks,
+                                          v_scales=Vs, **KW)[0]
+        else:
+            out, kc, vc = tdmk.fused_decode_layer(lyr, th, Kp, Vp, tt, tk,
+                                                  self_kv=True, **KW)
+            slot = (tp * ps + to).long()
+            Kp.view(Hkv, -1, d)[:, slot] = kc.transpose(0, 1)
+            Vp.view(Hkv, -1, d)[:, slot] = vc.transpose(0, 1)
+        runs.append((out, Kp, Vp, Ks, Vs))
+    for a, b in zip(*runs):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+    # the live rows' tokens went in: their slots moved
+    kp0 = torch.from_numpy(Kst[0])
+    assert not torch.equal(runs[1][1][:, page[0], off[0]],
+                           kp0[:, page[0], off[0]])
+
+
+@pytest.mark.parametrize("layers", [40, 80])
+def test_device_tables_stay_cached_over_a_deep_layer_scope_burst(
+        layers, monkeypatch):
+    """A layer-scope burst takes a pointer table and a tensor-map table
+    per layer and launch: over a 40- (13B) or 80-layer (70B) model every
+    table is made in the first iteration and found in the cache after
+    it, so no tensor map is encoded twice."""
+    encoded = []
+
+    class Lib:
+        @staticmethod
+        def decode_megakernel_encode(dt, qw, ptr, cols, rows, pitch, buf):
+            encoded.append(ptr)
+            return 0
+
+    monkeypatch.setattr(tdmk, "_TABLES", type(tdmk._TABLES)())
+    # no card here: the tables stay in host memory
+    monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self: self)
+    dev = torch.device("cpu")
+    key = (1, 0, 0)
+    for it in range(3):
+        for li in range(layers):
+            base = (1 << 32) + (li << 16)
+            ptrs = [base + 16 * j for j in range(20)]
+            mats = [(base + 16 * j, 2, 4096, 4096) for j in range(7)]
+            tdmk._pointer_table(ptrs, dev)
+            tdmk._map_table(Lib, key, mats, dev)
+        assert len(encoded) == 7 * layers, it
