@@ -107,7 +107,24 @@ Phases, each of which must pass (any failure exits non-zero):
     layer; the decode megakernel's phases each beside its bound, and
     ``torch.matmul`` of the 8 rows by the layer's 7 bf16 weights as the
     yardstick of its projections), and the int8 pool's segmented append
-    (plain PyTorch) at the 7B step's shapes.
+    (plain PyTorch) at the 7B step's shapes;
+11. phase ``[graphs]``: every owner of a CUDA graph (``jit/_capture.py``)
+    captured against the same step run eagerly
+    (``jit.enable_to_static(False)``) in this process, on the same
+    weights. Serving (the 8-request load, 64 new tokens each): 7B bf16,
+    int8 w + int8 KV and int4 w + int8 KV; fused bf16 and int8 w + int8
+    KV; bursts of 8 at both scopes, bf16 and int8 w + int8 KV, with two
+    sampled rows among the 8. Bitwise: tokens, every graph call's
+    outputs (the ragged step's logits, tokens and row guard; a burst's
+    tokens), every pool page and scale. Training (llama_125m and llama_1b at full width, in
+    phases ``[125m]`` and ``[1b]``): 3 steps each way from the same
+    weights, losses, every parameter and both AdamW moments bitwise.
+    Launches per step equal in both modes; Python ran only to warm up
+    and capture each key. Printed per path: host ms/step and device
+    busy/idle eager against captured, the captured step's host spans,
+    capture ms per key, keys and graph-pool bytes. Since capture is the
+    default, phases 3–9 run captured too, and their times include each
+    key's warm-up and capture.
 
 It prints the card's name and power limit, the kernels' JSON line, and
 last the line ``{"ok": true, "device": {...}}``. Without CUDA, or away
@@ -1488,6 +1505,8 @@ def train_run(torch, tag, cfg, batch, seq):
     step = pt.TrainStep(model, loss_fn, opt)
     ids = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, seq))).to("cuda")
+    # the initial weights, for phase [graphs]'s runs from the same state
+    init = [b.flat_p.clone() for b in opt._fused_engine.buckets]
     torch.cuda.synchronize()
     log(f"[{tag}] {n_params / 1e6:.1f} M parameters, {buckets} f32 bucket, "
         f"{cfg.num_hidden_layers} layers, remat {cfg.remat}: built in "
@@ -1540,10 +1559,107 @@ def train_run(torch, tag, cfg, batch, seq):
         f"memory {peak / 2 ** 30:.2f} GiB (host clock, synchronised at the "
         f"ends)")
     log(f"[{tag}] launches over the timed steps {launches}")
-    return dict(launches=launches, n_params=n_params, buckets=buckets,
-                ms_per_step=1e3 * dt / TIMED_STEPS, tokens_per_s=tok_s,
-                mfu=mfu, flops_per_token=fpt, peak_bytes=peak, losses=losses,
-                profile=breakdown)
+    run = dict(launches=launches, n_params=n_params, buckets=buckets,
+               ms_per_step=1e3 * dt / TIMED_STEPS, tokens_per_s=tok_s,
+               mfu=mfu, flops_per_token=fpt, peak_bytes=peak, losses=losses,
+               profile=breakdown, graphs=graph_stats(step.graphs))
+    check_graph_calls(tag, run["graphs"])
+    del step
+    run["graph_run"] = train_graphs(torch, tag, model, opt, loss_fn, ids,
+                                    init, run)
+    return run
+
+
+GRAPH_TRAIN_STEPS, GRAPH_EAGER_TIMED = 3, 5
+
+
+def train_graphs(torch, tag, model, opt, loss_fn, ids, init, captured):
+    """Phase [graphs], training: the step run eagerly
+    (``jit.enable_to_static(False)``: 2 warm, ``GRAPH_EAGER_TIMED`` timed
+    and 2 traced steps) beside the captured numbers of :func:`train_run`;
+    then ``GRAPH_TRAIN_STEPS`` eager and as many captured steps, each
+    from the initial weights and zero moments: losses, every parameter
+    and both AdamW moments bitwise equal."""
+    import gc
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    eng = opt._fused_engine
+
+    def restore():
+        for b, p0 in zip(eng.buckets, init):
+            b.flat_p.copy_(p0)
+            for m in b.state.values():
+                m.zero_()
+        opt._step_count = 0
+
+    jit.enable_to_static(False)
+    try:
+        step = pt.TrainStep(model, loss_fn, opt)
+        for _ in range(WARM_STEPS):
+            step(ids)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        for _ in range(GRAPH_EAGER_TIMED):
+            step(ids)
+        torch.cuda.synchronize()
+        eager_ms = 1e3 * (time.perf_counter() - t) / GRAPH_EAGER_TIMED
+        per_step = {k: v / GRAPH_EAGER_TIMED for k, v in LAUNCHES.items()}
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        traced = []
+        with prof:
+            for _ in range(TRACED_STEPS):
+                t1 = time.perf_counter()
+                step(ids)
+                torch.cuda.synchronize()
+                traced.append(time.perf_counter() - t1)
+        eager_profile = report_profile(
+            torch, prof, traced, f"graphs {tag} eager: {TRACED_STEPS} traced "
+            f"steps", {"matmuls": is_gemm})
+        restore()
+        want = [step(ids) for _ in range(GRAPH_TRAIN_STEPS)]
+        want_state = [(b.flat_p.clone(), [m.clone() for m in
+                                          b.state.values()])
+                      for b in eng.buckets]
+    finally:
+        jit.enable_to_static(True)
+    del step
+    gc.collect()
+    restore()
+    step = pt.TrainStep(model, loss_fn, opt)
+    got = [step(ids) for _ in range(GRAPH_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    same_loss = [a.item() for a in got] == [b.item() for b in want]
+    same_state = all(torch.equal(b.flat_p, p) and all(
+        torch.equal(m, w) for m, w in zip(b.state.values(), ms))
+        for b, (p, ms) in zip(eng.buckets, want_state))
+    cap_step = {k: v / TIMED_STEPS for k, v in captured["launches"].items()}
+    if not (same_loss and same_state) or cap_step != per_step:
+        raise AssertionError(
+            f"[graphs {tag}] captured != eager after {GRAPH_TRAIN_STEPS} "
+            f"steps: losses {[a.item() for a in got]} vs "
+            f"{[b.item() for b in want]}, parameters and moments "
+            f"{same_state}; launches per step {cap_step} vs {per_step}")
+    stats = graph_stats(step.graphs)
+    check_graph_calls(tag, stats)
+    cap_prof = captured["profile"]
+    nonzero = {k: v for k, v in per_step.items() if v}
+    busy = [f"{p['busy_ms']:.2f}" if p else "not measured"
+            for p in (eager_profile, cap_prof)]
+    log(f"[graphs {tag}] bitwise equal after {GRAPH_TRAIN_STEPS} steps from "
+        f"the same weights: losses, every parameter and both moments; "
+        f"launches per step equal ({nonzero}); host {eager_ms:.2f} -> "
+        f"{captured['ms_per_step']:.2f} ms/step, busy {busy[0]} -> "
+        f"{busy[1]} ms/step (eager -> captured); {stats['keys']} key, capture "
+        f"{list(captured['graphs']['capture_ms'].values())} ms, graph pool "
+        f"{captured['graphs']['pool_bytes']} bytes")
+    del step, want_state
+    return dict(eager_ms=eager_ms, eager_profile=eager_profile,
+                captured_ms=captured["ms_per_step"], captured_profile=cap_prof,
+                launches_per_step=per_step, graphs=captured["graphs"])
 
 
 def phase_train_125m(torch):
@@ -2796,6 +2912,288 @@ def phase_serve_7b_fused(torch, model, unfused, burst):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# [graphs]: each main path captured into CUDA graphs against its eager run
+# ---------------------------------------------------------------------------
+
+W8_KV8 = dict(quantized_mode="weight_only_int8", kv_cache_dtype="int8")
+
+#: the serving paths of phase [graphs]: engine knobs
+GRAPH_SERVE_RUNS = {
+    "bf16": {},
+    "w8_kv8": W8_KV8,
+    "w4_kv8": dict(quantized_mode="weight_only_int4", kv_cache_dtype="int8"),
+    "fused bf16": dict(prefill_megakernel="fused"),
+    "fused w8_kv8": dict(prefill_megakernel="fused", **W8_KV8),
+    "burst bf16 layer": dict(burst_tokens=BURST_TOKENS,
+                             megakernel_scope="layer"),
+    "burst bf16 model": dict(burst_tokens=BURST_TOKENS,
+                             megakernel_scope="model"),
+    "burst w8_kv8 layer": dict(burst_tokens=BURST_TOKENS,
+                               megakernel_scope="layer", **W8_KV8),
+    "burst w8_kv8 model": dict(burst_tokens=BURST_TOKENS,
+                               megakernel_scope="model", **W8_KV8),
+}
+
+
+def graph_stats(cache):
+    """A GraphCache's keys, capture ms per key, pool bytes and calls."""
+    return dict(keys=len(cache.keys),
+                capture_ms={str(k): v for k, v in cache.capture_ms().items()},
+                pool_bytes=cache.pool_bytes(), calls=dict(cache.calls))
+
+
+def check_graph_calls(tag, stats):
+    """Python ran the owner's step only to warm up and to capture: one
+    warm-up per key, one capture per key, no eager call, a replay."""
+    c = stats["calls"]
+    if c["eager"] or c["warmup"] != stats["keys"] or \
+            c["capture"] != len(stats["capture_ms"]) or not c["replay"]:
+        raise AssertionError(f"[graphs {tag}] the captured run's calls {c} "
+                             f"({stats['keys']} keys): a step ran Python "
+                             f"outside its warm-up and capture")
+
+
+#: new tokens per request in phase [graphs]: enough bursts of 8 that
+#: several replay after each burst key's warm-up and capture
+GRAPH_NEW_TOKENS = 64
+
+
+def graphs_serve(torch, model, tag, knobs, captured, trace_at=None):
+    """The 7B load (:func:`serve_prompts`, ``GRAPH_NEW_TOKENS`` new tokens
+    each) through ``LLMEngine(**knobs)`` with capture on or off
+    (``jit.enable_to_static``): per step its host time (synchronised),
+    its kind (prefill tokens, 0 for a decode step, -1 for a burst) and
+    what the graph cache did; each graph call's outputs (the ragged
+    step's logits, tokens and row guard, a burst's tokens) as device
+    copies; the
+    launch counts, tokens and the pools after the load. The captured run
+    traces 4 decode steps (2 bursts) once a decode step has replayed;
+    ``trace_at``, the steps (first, last) to trace, makes the eager run
+    trace the same ones."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    jit.enable_to_static(captured)
+    try:
+        eng = pt.LLMEngine(model, max_len=1024, page_size=16,
+                           max_num_seqs=8, **knobs)
+        V = model.config.vocab_size
+        prompts, late = serve_prompts(V)
+        cache, outs, kinds, modes = eng.graphs, [], [], []
+        orig = eng.scheduler.prepare_step
+
+        def prepare_step():
+            plan = orig()
+            if plan is not None:
+                kinds.append(sum(q for s, _, q in plan.rows
+                                 if s.cached_len < len(s.prompt_ids)))
+            return plan
+
+        # host clock marks per step: the launch entered, the graph call
+        # entered and returned, the launch returned; CUDA events per step
+        # around the graph call (with its outputs' copies)
+        marks, events = [], []
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def record(key, *a, **k):
+            marks[-1].append(time.perf_counter())
+            events.append([event()])
+            out = cache(key, *a, **k)
+            marks[-1].append(time.perf_counter())
+            if key[0] == "burst":
+                kinds.append(-1)
+            modes.append(cache.last_mode)
+            leaves = out if isinstance(out, tuple) else (out,)
+            outs.append([t.clone() for t in leaves])
+            events[-1].append(event())
+            return out
+
+        def timed(launch):
+            def run(*a, **k):
+                marks.append([time.perf_counter()])
+                out = launch(*a, **k)
+                marks[-1].append(time.perf_counter())
+                return out
+            return run
+
+        eng.scheduler.prepare_step = prepare_step
+        eng.graphs = record
+        eng._launch = timed(eng._launch)
+        eng._launch_burst = timed(eng._launch_burst)
+        new = GRAPH_NEW_TOKENS
+        rids = [eng.add_request(p, max_new_tokens=new, **(
+            dict(temperature=0.8, top_k=50, seed=100 + i)
+            if i in SERVE_SAMPLED else {})) for i, p in enumerate(prompts)]
+        reset_launch_counts()
+        step_s, tok, prof, traced, breakdown = [], [], None, [], None
+        spans = []
+        want_traced = TRACED_BURSTS if "burst_tokens" in knobs \
+            else PROFILED_STEPS
+        while eng.has_unfinished():
+            if len(rids) == len(prompts) and \
+                    eng.outputs()[rids[1]].token_ids:
+                rids.append(eng.add_request(late, max_new_tokens=new))
+            n = len(step_s)
+            if trace_at is None:
+                start = not traced and len(rids) > len(prompts) and \
+                    kinds and kinds[-1] <= 0 and modes[-1] == "replay"
+            else:
+                start = n == trace_at[0]
+            if prof is None and start:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.start()
+            tok0 = eng.metrics.tokens_generated.value
+            t = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            tok.append(eng.metrics.tokens_generated.value - tok0)
+            t0, t1, t2, t3 = marks[-1]
+            # ms: scheduling before the launch, packing (and the sampled
+            # rows' uniform draws) before the graph call, the call (a
+            # replay's enqueue and output copies), the wait for the
+            # device and the read-back, the commit after the launch; and
+            # the graph call's span on the device
+            ev = events[-1]
+            spans.append((t0 - t, t1 - t0, t2 - t1, t3 - t2,
+                          t + step_s[-1] - t3,
+                          1e-3 * ev[0].elapsed_time(ev[1])))
+            if prof is not None:
+                traced.append(n)
+                if (len(traced) == want_traced if trace_at is None
+                        else n == trace_at[1]) or not eng.has_unfinished():
+                    prof.stop()
+                    breakdown = report_profile(
+                        torch, prof, [step_s[i] for i in traced],
+                        f"graphs {tag} {'captured' if captured else 'eager'}"
+                        f": {len(traced)} traced steps {traced} (kinds "
+                        f"{[kinds[i] for i in traced]})",
+                        {"matmuls": is_gemm})
+                    prof = None
+            if len(step_s) > 2000:
+                raise AssertionError(f"[graphs {tag}] the load did not "
+                                     f"drain")
+        launches = dict(LAUNCHES)
+        res = eng.outputs()
+        eng.pool.check_invariants()
+        for r in rids:
+            if res[r].status != "finished" or len(res[r].token_ids) != new:
+                raise AssertionError(f"[graphs {tag}] {r}: {res[r]}")
+        pools = [t.clone() for pair in eng.pool.kv for t in pair]
+        if eng.pool.quantized:
+            pools += [t.clone() for pair in eng.pool.kv_scales for t in pair]
+        stats = graph_stats(cache)
+        del eng
+        return dict(tokens=[res[r].token_ids for r in rids], outs=outs,
+                    pools=pools, launches=launches, step_s=step_s, tok=tok,
+                    kinds=kinds, modes=modes, traced=traced, spans=spans,
+                    profile=breakdown, graphs=stats)
+    finally:
+        jit.enable_to_static(True)
+
+
+def graph_times(run, skip):
+    """Host ms per decode step, per burst and per generated token in
+    bursts, and over every step, leaving out the steps ``skip``."""
+    def mean(idx):
+        return 1e3 * sum(run["step_s"][i] for i in idx) / len(idx) \
+            if idx else None
+    idx = [i for i in range(len(run["step_s"])) if i not in skip
+           and i not in run["traced"]]
+    bursts = [i for i in idx if run["kinds"][i] < 0]
+    btok = sum(run["tok"][i] for i in bursts)
+    decode = [i for i in idx if run["kinds"][i] == 0]
+
+    def spans(sel):
+        return [1e3 * sum(run["spans"][i][j] for i in sel) / len(sel)
+                for j in range(6)] if sel else None
+    return dict(decode_ms=mean(decode),
+                decode_spans_ms=spans(decode), burst_spans_ms=spans(bursts),
+                burst_ms=mean(bursts),
+                burst_ms_per_token=1e3 * sum(run["step_s"][i]
+                                             for i in bursts) / btok
+                if btok else None,
+                step_ms=mean(idx), steps=len(idx))
+
+
+def fmt_ms(x):
+    return "none" if x is None else f"{x:.2f}"
+
+
+def phase_graphs_serve(torch, model):
+    """Phase [graphs], serving: every path of ``GRAPH_SERVE_RUNS``
+    captured and then eager on the same weights and requests. Bitwise:
+    tokens, every graph call's outputs, pool pages and scales; launches
+    equal; Python ran only to warm up and capture. Host times leave out
+    the steps that warmed up or captured a key (in both runs), and the
+    traced ones."""
+    import gc
+    out = {}
+    for tag, knobs in GRAPH_SERVE_RUNS.items():
+        cap = graphs_serve(torch, model, tag, knobs, True)
+        eager = graphs_serve(torch, model, tag, knobs, False,
+                             trace_at=(cap["traced"][0], cap["traced"][-1])
+                             if cap["traced"] else (-1, -1))
+        same_outs = len(cap["outs"]) == len(eager["outs"]) and all(
+            len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+            for a, b in zip(cap["outs"], eager["outs"]))
+        same_pools = all(torch.equal(a, b)
+                         for a, b in zip(cap["pools"], eager["pools"]))
+        steps = len(cap["step_s"])
+        if cap["tokens"] != eager["tokens"] or not same_outs or \
+                not same_pools or cap["launches"] != eager["launches"] or \
+                steps != len(eager["step_s"]):
+            raise AssertionError(
+                f"[graphs {tag}] captured != eager: tokens "
+                f"{cap['tokens'] == eager['tokens']}, outputs {same_outs}, "
+                f"pools {same_pools}, launches {cap['launches']} vs "
+                f"{eager['launches']}, steps {steps} vs "
+                f"{len(eager['step_s'])}")
+        check_graph_calls(tag, cap["graphs"])
+        replayed = [m == "replay" for i, m in enumerate(cap["modes"])
+                    if i in cap["traced"]]
+        skip = {i for i, m in enumerate(cap["modes"]) if m != "replay"}
+        row = {k: dict(graph_times(r, skip), profile=r["profile"])
+               for k, r in (("eager", eager), ("captured", cap))}
+        row["graphs"] = cap["graphs"]
+        row["traced_steps_replayed"] = all(replayed)
+        row["launches_per_step"] = {k: v / steps
+                                    for k, v in cap["launches"].items() if v}
+        out[tag] = row
+        e, c = row["eager"], row["captured"]
+        log(f"[graphs {tag}] bitwise equal: tokens, {len(cap['outs'])} "
+            f"graph outputs, {len(cap['pools'])} pool tensors; launches "
+            f"equal ({ {k: v for k, v in cap['launches'].items() if v} } "
+            f"over {steps} steps); eager -> "
+            f"captured host ms (synchronised per step, the {len(skip)} "
+            f"warm-up and capture steps left out): decode step "
+            f"{fmt_ms(e['decode_ms'])} -> {fmt_ms(c['decode_ms'])}, burst "
+            f"{fmt_ms(e['burst_ms'])} -> {fmt_ms(c['burst_ms'])} "
+            f"({fmt_ms(e['burst_ms_per_token'])} -> "
+            f"{fmt_ms(c['burst_ms_per_token'])} per token), every step "
+            f"{fmt_ms(e['step_ms'])} -> {fmt_ms(c['step_ms'])}; captured "
+            f"host spans (schedule, pack, graph call, wait + read-back, "
+            f"commit) and the graph call's device span (with its "
+            f"outputs' copies) per decode step "
+            f"{[round(x, 3) for x in c['decode_spans_ms'] or []]}, per "
+            f"burst {[round(x, 3) for x in c['burst_spans_ms'] or []]}; "
+            f"{cap['graphs']['keys']} keys, capture ms "
+            f"{cap['graphs']['capture_ms']}, graph pool "
+            f"{cap['graphs']['pool_bytes']} bytes; traced steps all "
+            f"replays: {row['traced_steps_replayed']}")
+        del eager, cap
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_time_prefill(torch):
     """Row 11 at the 7B T = 128 mixed step: the kernel per layer (bf16
     weights and pool; int8 weights and pool, whose whole layer call also
@@ -2931,6 +3329,7 @@ def main() -> int:
     low = phase_serve_7b_lowbit(torch, model, bf16)
     burst = phase_serve_7b_burst(torch, model, {"bf16": bf16, **low})
     fused = phase_serve_7b_fused(torch, model, {"bf16": bf16, **low}, burst)
+    graphs = phase_graphs_serve(torch, model)
     del model
     torch.cuda.empty_cache()
     train = phase_train_125m(torch)
@@ -3118,6 +3517,9 @@ def main() -> int:
             "llama_125m": dict(small, launches=train["launches"][name],
                                shape="[8192, 768] f32 (launches: 10 "
                                      "llama_125m steps)")})
+    graphs["train 125m"] = train["graph_run"]
+    graphs["train 1b"] = train_1b["graph_run"]
+    log("[graphs] summary " + json.dumps(graphs, default=str))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

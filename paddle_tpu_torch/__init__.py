@@ -17,6 +17,10 @@ Ported so far:
   backward, ``kernels/csrc/flash_attention.cu``), RMSNorm (forward and
   backward, ``kernels/csrc/rms_norm.cu``) and the fused AdamW bucket
   update (``kernels/csrc/fused_adamw.cu``) written in CUDA.
+
+On the card the training step, the engine's ragged step and its decode
+bursts each replay a CUDA graph per shape key (``jit/_capture.py``);
+``jit.enable_to_static(False)`` runs them eagerly.
 """
 from . import amp, jit, nn, optimizer
 from .amp import auto_cast

@@ -75,8 +75,11 @@ class auto_cast:
         self._saved = (_state.enabled, _state.dtype)
         _state.enabled, _state.dtype = self.enable, self.dtype
         devices = ["cpu"] + (["cuda"] if torch.cuda.is_available() else [])
+        # no weight-cast cache: a cached cast made in one CUDA graph
+        # capture would be read by address after the context frees it
         self._contexts = [torch.autocast(d, dtype=self.dtype,
-                                         enabled=self.enable)
+                                         enabled=self.enable,
+                                         cache_enabled=False)
                           for d in devices]
         for c in self._contexts:
             c.__enter__()

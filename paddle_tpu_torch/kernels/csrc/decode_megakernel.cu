@@ -1351,17 +1351,24 @@ int grid_for(int* grid) {
 }
 
 // one cooperative launch: the runtime refuses it unless every block is
-// resident, which the grid barrier needs
+// resident, which the grid barrier needs. cudaLaunchKernelEx with the
+// cooperative attribute, which a stream capture takes into a CUDA graph
 template <typename T, typename W, typename PT>
 int launch(const Params* p, int grid, cudaStream_t stream) {
   cudaError_t err = opt_in<T, W, PT>();
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {const_cast<Params*>(p)};
-  err = cudaLaunchCooperativeKernel((const void*)decode_megakernel<T, W, PT>,
-                                    dim3(grid), dim3(kThreads), args,
-                                    kSmemBytes, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, decode_megakernel<T, W, PT>, *p);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace

@@ -54,7 +54,7 @@ from collections import OrderedDict
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES
+from . import LAUNCHES, check_not_capturing, keep_alive
 from ..quantization.low_bit import QuantizedWeight
 
 _NEG_INF = -1e30
@@ -427,23 +427,28 @@ def _grid(query, device, key):
 
 def _barrier(device):
     """The grid barrier's (count, generation) words on ``device``: the
-    kernel leaves the count at 0, so launches on one stream share them."""
+    kernel leaves the count at 0, so launches on one stream share them,
+    a CUDA graph's replays and eager launches alike."""
     if device.index not in _BARRIERS:
+        check_not_capturing("the grid barrier")
         _BARRIERS[device.index] = torch.zeros(2, dtype=torch.int32,
                                               device=device)
-    return _BARRIERS[device.index]
+    return keep_alive(_BARRIERS[device.index])
 
 
 def _cached(key, make):
-    """A device table cached by what it holds (``_TABLES``, bounded)."""
+    """A device table cached by what it holds (``_TABLES``, bounded). A
+    graph being captured keeps every table it reads (an eviction would
+    free it under the graph); none is made during a capture."""
     t = _TABLES.get(key)
     if t is None:
+        check_not_capturing("a decode megakernel device table")
         t = _TABLES[key] = make()
         while len(_TABLES) > _MAX_TABLES:
             _TABLES.popitem(last=False)
     else:
         _TABLES.move_to_end(key)
-    return t
+    return keep_alive(t)
 
 
 def _pointer_table(ptrs, device):

@@ -51,7 +51,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import LAUNCHES
+from . import LAUNCHES, check_not_capturing, keep_alive
 from ..quantization.low_bit import QuantizedWeight
 from .decode_megakernel import (_DTYPE_CODE, _barrier, _check, _grid,
                                 _per_layer, _plain_wmat, _unstack_layers)
@@ -375,6 +375,7 @@ def _scratch(lib, dev, dtype, T, D, Hd, Fh, bm, bk):
     key = (dev.index, dtype, T, D, Hd, Fh)
     hit = _SCRATCH.get(key)
     if hit is None:
+        check_not_capturing("the prefill megakernel's scratch")
         bufs = [torch.empty((T, n), dtype=dtype, device=dev)
                 for n in (D, Hd, Hd, Fh)]
         bufs.append(torch.empty((T, D), dtype=torch.float32, device=dev))
@@ -388,6 +389,7 @@ def _scratch(lib, dev, dtype, T, D, Hd, Fh, bm, bk):
             _SCRATCH.popitem(last=False)
     else:
         _SCRATCH.move_to_end(key)
+    keep_alive(hit[0])        # a graph being captured keeps the buffers
     return hit
 
 

@@ -233,24 +233,44 @@ def sample_rows(logits, temps, top_ks, top_ps, base_seed, seeds, positions,
     row). ``hot``: the sampling rows' indices as host ints, when the
     caller has them (then ``temps`` is never read back from the device).
     Returns int64 tokens [b] on the logits' device."""
-    tok = logits.argmax(-1)
     if hot is None:
         hot = [i for i, t in enumerate(temps.tolist()) if t > 0]
     if not hot:
-        return tok
-    safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
+        return logits.argmax(-1)
+    u = torch.zeros(logits.shape, dtype=torch.float32, device=logits.device)
+    draw_uniforms(u, base_seed, seeds, positions, tag, hot)
+    return sample_rows_drawn(logits, temps, top_ks, top_ps, u)
+
+
+def draw_uniforms(out, base_seed, seeds, positions, tag, rows):
+    """The uniforms of :func:`sample_rows`, drawable ahead: for each row
+    ``r`` of ``rows`` (host ints), ``out[r]`` (a ``[V]`` f32 row) takes
+    ``torch.rand`` of the generator seeded by :func:`stream_seed` at the
+    row's seed and position. The other rows of ``out`` keep whatever
+    they hold."""
+    for r in rows:
+        g = torch.Generator(device=out.device)
+        g.manual_seed(stream_seed(base_seed, seeds[r], positions[r], tag))
+        torch.rand(out.shape[-1], generator=g, out=out[r])
+    return out
+
+
+def sample_rows_drawn(logits, temps, top_ks, top_ps, uniforms):
+    """:func:`sample_rows` with its uniforms drawn ahead
+    (:func:`draw_uniforms`): no host value is read, so a CUDA graph can
+    hold it. Greedy rows (temp <= 0) take the argmax; sampling rows the
+    Gumbel-max of their masked distribution with ``uniforms`` ``[b, V]``
+    as the noise (rows are independent: a row's token is the one it
+    takes sampled alone)."""
+    tok = logits.argmax(-1)
+    hot = temps > 0
+    safe_t = torch.where(hot, temps, torch.ones_like(temps))
     logp = torch.log_softmax(
         _masked_logits(logits, safe_t, top_ks, top_ps), -1)
-    V = logits.shape[-1]
-    for i in hot:
-        g = torch.Generator(device=logits.device)
-        g.manual_seed(stream_seed(base_seed, seeds[i], positions[i], tag))
-        u = torch.rand(V, generator=g, device=logits.device)
-        gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
-        tok[i] = (logp[i] + gumbel).argmax()
-    return tok
+    gumbel = -torch.log(-torch.log(uniforms.clamp_min(1e-20)))
+    return torch.where(hot, (logp + gumbel).argmax(-1), tok)
 
 
-__all__ = ["extract_params", "resolve_megakernel_scope",
-           "resolve_prefill_megakernel", "sample_rows", "sampling_probs",
-           "stream_seed"]
+__all__ = ["draw_uniforms", "extract_params", "resolve_megakernel_scope",
+           "resolve_prefill_megakernel", "sample_rows", "sample_rows_drawn",
+           "sampling_probs", "stream_seed"]

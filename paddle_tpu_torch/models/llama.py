@@ -209,8 +209,11 @@ class LlamaModel(nn.Module):
         pos = torch.arange(s, device=input_ids.device).expand(b, s)
         h = self.embed_tokens(input_ids)
         remat = effective_remat_policy(self.config.remat) != "none"
+        # a layer draws no random numbers: the recompute keeps no RNG
+        # state (reading it is refused inside a CUDA graph capture)
         for layer in self.layers:
-            h = recompute(layer, h, pos) if remat else layer(h, pos)
+            h = recompute(layer, h, pos, preserve_rng_state=False) \
+                if remat else layer(h, pos)
         return self.norm(h)
 
 

@@ -58,7 +58,8 @@ def fused_linear_cross_entropy(hidden, weight, label, chunk_size=1024,
     embedding); label ``[tokens]``. The head matmul follows autocast (in
     bf16 under O1, as the white list's ``matmul``); the softmax is f32.
     The recompute replays the forward's autocast state, so it yields the
-    same logits."""
+    same logits; it keeps no RNG state (the chunk draws none, and reading
+    it is refused inside a CUDA graph capture)."""
     if reduction not in ("mean", "sum"):
         raise ValueError(
             f"fused_linear_cross_entropy supports reduction='mean'|'sum', "
@@ -70,7 +71,7 @@ def fused_linear_cross_entropy(hidden, weight, label, chunk_size=1024,
         total = total + checkpoint(
             _chunk_loss, hidden[start:start + chunk], weight,
             label[start:start + chunk], bool(transpose_weight), ignore_index,
-            use_reentrant=False)
+            use_reentrant=False, preserve_rng_state=False)
     if reduction == "mean":
         return total / (label != ignore_index).sum().clamp_min(1)
     return total

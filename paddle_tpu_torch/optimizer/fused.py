@@ -33,10 +33,19 @@ Which parameters take part, as in the reference
   rebuilds them, its state starting at zero and the others' kept;
 - a ``.grad`` replaced by a tensor of its own (not the bucket's view)
   makes :meth:`step` raise rather than update from a stale buffer.
+
+A step's ``[lr, 1 - beta1^t, 1 - beta2^t]`` go to each bucket's device
+``scalars`` through pinned staging (:meth:`stage_scalars`), queued on
+the stream; the kernel reads them by pointer. A step captured into a
+CUDA graph (``jit.TrainStep``) stages them before each replay, outside
+the graph, and runs :meth:`step` with ``staged=True``.
 """
 from __future__ import annotations
 
 import torch
+
+from ..core.staging import HostStaging
+from ..kernels import check_not_capturing, keep_alive
 
 # -- dispatch-count trace hook ---------------------------------------------
 # Every optimizer-update launch records itself here; a step's delta is
@@ -77,6 +86,9 @@ class FusedOptimizerEngine:
         #: and its buckets alive after the optimizer was dropped)
         self._present: set = set()
         self._hooks: dict = {}
+        self._staging = HostStaging()
+        #: per bucket, the presence pattern the last step updated under
+        self.last_presence = None
         have = [p for p in self._candidates if p.grad is not None]
         self._layout(have if have else self._candidates, {})
         # gradients that exist at the build count as this step's
@@ -146,6 +158,13 @@ class FusedOptimizerEngine:
     def zero_grad(self):
         for b in self.buckets:
             b.flat_g.zero_()
+        self.reset_host_state()
+
+    def reset_host_state(self):
+        """The host half of :meth:`zero_grad` and of a step's end: every
+        parameter's ``.grad`` views its bucket again and the presence set
+        is empty (a replayed step's graph ran neither)."""
+        for b in self.buckets:
             for p, off in zip(b.params, b.offsets):
                 if p.grad is None:
                     p.grad = b.flat_g[off:off + p.numel()].view(p.shape)
@@ -176,6 +195,7 @@ class FusedOptimizerEngine:
         from ..kernels.fused_adamw import span_table
         t = b.tables.get(present)
         if t is None:
+            check_not_capturing("a fused AdamW span table")
             spans = []
             for p, off, ok in zip(b.params, b.offsets, present):
                 if not ok or p.numel() == 0:
@@ -191,19 +211,34 @@ class FusedOptimizerEngine:
             if len(b.tables) >= _MAX_TABLES:
                 b.tables.pop(next(iter(b.tables)))
             b.tables[present] = t
-        return t
+        return keep_alive(t)
 
     # -- the step --------------------------------------------------------
 
-    def step(self, lr, t):
+    def stage_scalars(self, lr, t):
+        """Each bucket's device ``scalars`` <- the step's scalars
+        (``opt._step_scalars``), through pinned staging."""
+        vals = torch.tensor(self.opt._step_scalars(lr, t),
+                            dtype=torch.float32).numpy()
+        for b in self.buckets:
+            self._staging.copy_(b.scalars, vals)
+
+    def step(self, lr, t, staged=False):
+        """One update launch per bucket with a present parameter;
+        ``staged``: the scalars of step ``t`` are already in place."""
         extra = {id(p) for p in self._candidates
                  if id(p) not in self._bucketed and p.grad is not None}
         if extra:
+            check_not_capturing("a rebuild of the fused optimizer's buckets")
             self._rebuild(extra)
             self._present |= extra
         self.check_aliasing()
+        if not staged:
+            self.stage_scalars(lr, t)
+        self.last_presence = []
         for b in self.buckets:
             present = self._presence(b)
+            self.last_presence.append(present)
             if not any(present):
                 continue                      # the whole bucket untouched
             spans = None if all(present) else self.span_table(b, present)
@@ -211,6 +246,7 @@ class FusedOptimizerEngine:
                 continue
             self.opt._fused_flat_update(b, lr, t, spans)
             record_dispatch()
+        self.last_presence = tuple(self.last_presence)
         self._present.clear()
 
     def state_views(self):

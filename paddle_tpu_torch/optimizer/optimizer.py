@@ -77,6 +77,10 @@ class Optimizer:
         if self._fused_engine is not None:
             self._fused_engine.step(self.get_lr(), self._step_count)
 
+    def _step_scalars(self, lr, t):
+        """The f32 scalars a bucket update of step ``t`` reads."""
+        raise NotImplementedError
+
     def _fused_flat_update(self, bucket, lr, t, spans=None):
         raise NotImplementedError
 
@@ -104,19 +108,19 @@ class Adam(Optimizer):
     def _state_names(self):
         return ("moment1", "moment2")
 
+    def _step_scalars(self, lr, t):
+        return adamw_scalars(lr, t, self._beta1, self._beta2)
+
     def _fused_flat_update(self, bucket, lr, t, spans=None):
-        """One fused-AdamW launch over the bucket: the step's
-        ``[lr, 1 - beta1^t, 1 - beta2^t]`` go to the bucket's device
-        tensor, then the kernel (or, on the CPU, its plain version)
-        updates param and moments in place; ``spans``, a span table of
-        the present parameters, masks the others."""
+        """One fused-AdamW launch over the bucket: the kernel (or, on the
+        CPU, its plain version) reads the step's ``[lr, 1 - beta1^t,
+        1 - beta2^t]`` from the bucket's device ``scalars`` (staged by
+        the engine) and updates param and moments in place; ``spans``, a
+        span table of the present parameters, masks the others."""
         if bucket.flat_p.dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(
                 f"fused AdamW buckets are float32 or bfloat16, got "
                 f"{bucket.flat_p.dtype}")
-        bucket.scalars.copy_(torch.tensor(
-            adamw_scalars(lr, t, self._beta1, self._beta2),
-            dtype=torch.float32))
         fused_adamw(bucket.flat_p, bucket.flat_g, bucket.state["moment1"],
                     bucket.state["moment2"], bucket.scalars,
                     beta1=self._beta1, beta2=self._beta2, eps=self._eps,

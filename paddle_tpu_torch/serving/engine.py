@@ -13,7 +13,22 @@ Every step is one ragged step of FIXED shapes — ``step_token_budget``
 packed query tokens over ``max_num_seqs`` row slots with
 ``[max_num_seqs, max_len // page_size]`` block tables — whatever mix of
 decode rows and prefill chunks it carries. Everything request-specific
-is data. (Fixed shapes keep CUDA-graph capture of the step open.)
+is data.
+
+On CUDA each step replays a CUDA graph (``jit/_capture.py``), the
+counterpart of the reference's ``jax.jit`` of its ragged step and burst
+(``paddle_tpu/serving/engine.py:1091-1092``). The ragged step's graph
+runs from the packed int operands to the logits and the ``isfinite``
+row guard and the sampled tokens, one graph per engine and whether a
+row samples (an int8 pool: also one per append-plan ``bound``, the most
+pages a row appends into); the host packs the operands and copies them
+in one queued copy from pinned memory, and reads the tokens and the
+guard back once. A burst's graph runs all its iterations, one graph per
+burst length (and whether a row samples). The sampled rows' uniforms
+are drawn ahead of the replay from their per-row generators into a
+static buffer (``models/generation.draw_uniforms``), the draws
+``sample_rows`` makes. ``jit.enable_to_static(False)`` runs the same
+code eagerly; a capture that fails raises.
 
 Each layer runs the fp layer body ``spec_decode._ragged_fp_layer``,
 whose attention is ``kernels/paged_attention.ragged_paged_attention``:
@@ -81,6 +96,8 @@ import torch.nn.functional as F
 
 from ..core.flags import GLOBAL_FLAGS
 from ..core.place import resolve_device
+from ..core.staging import HostStaging
+from ..jit._capture import GraphCache
 from ..kernels.decode_megakernel import (_rope_tables, fused_decode_model,
                                          megakernel_mode)
 from ..kernels.paged_attention import (ragged_block_row,
@@ -91,14 +108,14 @@ from ..kernels.prefill_megakernel import (fuse_layer_weights,
                                           prefill_megakernel_mode,
                                           ragged_prologue)
 from ..models.generation import (_logits, _rms_norm, _rope, _wmat,
-                                 extract_params, resolve_megakernel_scope,
-                                 resolve_prefill_megakernel, sample_rows)
+                                 draw_uniforms, extract_params,
+                                 resolve_megakernel_scope,
+                                 resolve_prefill_megakernel, sample_rows_drawn)
 from ..quantization.low_bit import params_weight_bytes, quantize_params
 from .kv_cache import NULL_PAGE, PagedKVPool
 from .metrics import ServingMetrics
 from .scheduler import Scheduler, SchedulerConfig, Sequence, SequenceStatus
-from .spec_decode import (FINAL_TAG, _ragged_fp_layer, _ragged_packing,
-                          speculative_sample)
+from .spec_decode import FINAL_TAG, _ragged_fp_layer, _ragged_packing
 from .tracing import FlightRecorder
 
 
@@ -438,6 +455,11 @@ class LLMEngine:
         self._prefix_cache: dict[tuple, tuple[str, int]] = {}
         #: page-aligned token-prefix -> (pinned chain id, length)
         self._pinned_index: dict[tuple, tuple[tuple, int]] = {}
+        #: the ragged step's and the bursts' CUDA graphs; per key, the
+        #: device buffers they read (operands; a burst's uniforms)
+        self.graphs = GraphCache("LLMEngine", strict=True)
+        self._static: dict = {}
+        self._staging = HostStaging()
 
     # ------------------------------------------------------------------
     # public API
@@ -768,34 +790,67 @@ class LLMEngine:
             seeds[i] = seq.seed
             sample_pos[i] = len(seq.tokens)
         # where an int8 pool's append writes: planned on the host, so the
-        # step reads nothing back from the device
+        # step reads nothing back from the device; its size (rows x
+        # bound) keys the step's graph
         plan = _append_plan(tbls, q_starts, q_lens, kv_lens, self.page_size,
                             self.chunk_size, T) \
             if self.pool.quantized else ()
-        # one host->device copy for every int operand
-        ints = torch.from_numpy(np.concatenate(
+        bound = plan[0].size // R if plan else 0
+        hot = np.flatnonzero(temps > 0).tolist()
+        ints = np.concatenate(
             [tokens, positions, tbls.reshape(-1), q_starts, q_lens, kv_lens,
-             sample_idx] + [a.reshape(-1) for a in plan])).to(self.device)
-        (tokens_t, positions_t, tbls_t, q_starts_t, q_lens_t, kv_lens_t,
-         sample_idx_t, *plan_t) = torch.split(
-            ints, [T, T, R * PPS, R, R, R, R] + [a.size for a in plan])
-        tbls_t = tbls_t.view(R, PPS)
-        append = None
-        if plan:
-            page_t, tok_t, sel_t = plan_t
-            append = (page_t.long(), tok_t.view(plan[1].shape).long(),
-                      sel_t.view(plan[2].shape).bool())
-        with torch.inference_mode():
-            logits = self._ragged_forward(tokens_t, positions_t, tbls_t,
-                                          q_starts_t, q_lens_t, kv_lens_t,
-                                          sample_idx_t, append)
-            finite = torch.isfinite(logits).all(-1) | (q_lens_t <= 0)
-            knobs = [torch.from_numpy(a).to(self.device)
-                     for a in (temps, top_ks, top_ps)]
-            out, _ = speculative_sample(
-                logits[:, None], None, None, [0] * R, *knobs, self.seed,
-                seeds, sample_pos)
-        return out[:, 0].cpu().numpy(), finite.cpu().numpy()
+             sample_idx, top_ks] + [a.reshape(-1) for a in plan]
+            + [np.concatenate([temps, top_ps]).view(np.int32)])
+        key = ("ragged", bound, bool(hot))
+        # one queued host->device copy: the ints and the knobs' f32 bits
+        buf = self._operands(key, ints.size)
+        self._staging.copy_(buf, ints)
+        inputs = [buf]
+        if hot:
+            # the sampled rows' uniforms, drawn ahead of the graph from
+            # the generators the per-token sample seeds
+            u = self._operands(key, R * self.cfg.vocab_size, torch.float32,
+                               (R, self.cfg.vocab_size))
+            draw_uniforms(u, self.seed, seeds, sample_pos, FINAL_TAG, hot)
+            inputs.append(u)
+        sizes = [T, T, R * PPS, R, R, R, R, R] + [a.size for a in plan] \
+            + [2 * R]
+        shapes = [a.shape for a in plan]
+
+        def step(ints, uniforms=None):
+            (tokens_t, positions_t, tbls_t, q_starts_t, q_lens_t, kv_lens_t,
+             sample_idx_t, top_ks_t, *plan_t, knobs_t) = torch.split(ints,
+                                                                     sizes)
+            append = None
+            if plan_t:
+                page_t, tok_t, sel_t = plan_t
+                append = (page_t.long(), tok_t.view(shapes[1]).long(),
+                          sel_t.view(shapes[2]).bool())
+            temps_t, top_ps_t = knobs_t.view(torch.float32).view(2, R)
+            with torch.inference_mode():
+                logits = self._ragged_forward(
+                    tokens_t, positions_t, tbls_t.view(R, PPS), q_starts_t,
+                    q_lens_t, kv_lens_t, sample_idx_t, append)
+                finite = torch.isfinite(logits).all(-1) | (q_lens_t <= 0)
+                out = logits.argmax(-1) if uniforms is None else \
+                    sample_rows_drawn(logits, temps_t, top_ks_t, top_ps_t,
+                                      uniforms)
+                return logits, torch.cat([out, finite.long()])
+
+        _, res = self.graphs(key, step, inputs, device=self.device,
+                             static_inputs=True)
+        res = res.cpu().numpy()
+        return res[:R], res[R:].astype(bool)
+
+    def _operands(self, key, n, dtype=torch.int32, shape=None):
+        """The device buffer of ``n`` elements the graph of ``key`` reads
+        (one per key and ``shape``, made at its first step)."""
+        k = (key, n, dtype, shape)
+        buf = self._static.get(k)
+        if buf is None:
+            buf = self._static[k] = torch.zeros(
+                shape or (n,), dtype=dtype, device=self.device)
+        return buf
 
     def _ragged_forward(self, tokens, positions, tbls, q_starts, q_lens,
                         kv_lens, sample_idx, append):
@@ -894,16 +949,36 @@ class LLMEngine:
                if seq.temperature > 0]
         self.metrics.host_dispatches.inc()
         self.metrics.burst_launches.inc()
-        dev = torch.from_numpy(np.concatenate(
-            [ints.reshape(-1), tbls.reshape(-1)])).to(self.device)
-        tokens, kv_lens, live, caps, top_ks, eos_ids = dev[:6 * R].view(6, R)
-        knobs = torch.from_numpy(floats).to(self.device)
-        with torch.inference_mode():
-            out, gen, ok = self._burst(
-                tokens, kv_lens, dev[6 * R:].view(R, PPS), live.bool(), caps,
-                knobs[0], top_ks, knobs[1], eos_ids, seeds, gpos, hot, B)
-            res = torch.cat([out.reshape(-1), gen.long(), ok.long()]) \
-                .cpu().numpy()
+        # one queued host->device copy: ints, tables, the knobs' f32 bits
+        packed = np.concatenate([ints.reshape(-1), tbls.reshape(-1),
+                                 floats.reshape(-1).view(np.int32)])
+        key = ("burst", B, bool(hot))
+        buf = self._operands(key, packed.size)
+        self._staging.copy_(buf, packed)
+        inputs = [buf]
+        if hot:
+            # each sampled row's uniforms of every iteration, drawn
+            # ahead of the graph from the per-token path's generators
+            V = self.cfg.vocab_size
+            u = self._operands(key, B * R * V, torch.float32, (B, R, V))
+            for i in range(B):
+                draw_uniforms(u[i], self.seed, seeds,
+                              [g + i for g in gpos], FINAL_TAG, hot)
+            inputs.append(u)
+
+        def burst(buf, uniforms=None):
+            ints_t = buf[:6 * R].view(6, R)
+            tbls_t = buf[6 * R:6 * R + R * PPS].view(R, PPS)
+            knobs = buf[6 * R + R * PPS:].view(torch.float32).view(2, R)
+            tokens, kv_lens, live, caps, top_ks, eos_ids = ints_t
+            with torch.inference_mode():
+                out, gen, ok = self._burst(
+                    tokens, kv_lens, tbls_t, live.bool(), caps, knobs[0],
+                    top_ks, knobs[1], eos_ids, uniforms, B)
+                return torch.cat([out.reshape(-1), gen.long(), ok.long()])
+
+        res = self.graphs(key, burst, inputs, device=self.device,
+                          static_inputs=True).cpu().numpy()
         out = res[:R * B].reshape(R, B)
         gen, ok = res[R * B:R * B + R], res[R * B + R:]
         for i, (seq, _cap) in enumerate(bplan.rows):
@@ -922,16 +997,18 @@ class LLMEngine:
             touched[seq.seq_id] = self._outputs[seq.seq_id]
 
     def _burst(self, tokens, kv_lens, tbls, live, caps, temps, top_ks,
-               top_ps, eos_ids, seeds, gpos, hot, n_steps):
+               top_ps, eos_ids, uniforms, n_steps):
         """``n_steps`` decode iterations over every row slot, on the
-        device, with no device read: per iteration the decode megakernel
-        for every layer (one launch at model scope) with the KV append,
-        the final norm, the logits, the sample and the EOS/length gate.
-        Rows carry ``live``, ``gen``, ``out`` and ``ok`` on the device; a
-        dead row appends to the null page and keeps its ``kv_len``. A
-        live row's generation position at iteration ``i`` is
-        ``gpos[row] + i``, so its draws are those of the per-token path.
-        Returns ``(out [R, n_steps], gen [R], ok [R])``."""
+        device, with no device read and no host value: per iteration the
+        decode megakernel for every layer (one launch at model scope)
+        with the KV append, the final norm, the logits, the sample and
+        the EOS/length gate. Rows carry ``live``, ``gen``, ``out`` and
+        ``ok`` on the device; a dead row appends to the null page and
+        keeps its ``kv_len``. ``uniforms [n_steps, R, V]``: the sampled
+        rows' uniforms of each iteration, drawn at the row's generation
+        position ``gpos[row] + i``, so its draws are those of the
+        per-token path (None: every row is greedy). Returns
+        ``(out [R, n_steps], gen [R], ok [R])``."""
         cfg, p, pool = self.cfg, self.params, self.pool
         R, ps, PPS = self.max_num_seqs, self.page_size, self.max_pages_per_seq
         H, d = cfg.num_attention_heads, cfg.head_dim
@@ -971,9 +1048,8 @@ class LLMEngine:
             hn = _rms_norm(h[None], p["norm"], eps)[0]
             logits = _logits(p, hn, cfg)                     # [R, V]
             ok = ok & (torch.isfinite(logits).all(-1) | ~live_in)
-            nxt = sample_rows(logits, temps, top_ks, top_ps, self.seed,
-                              seeds, [g + i for g in gpos], FINAL_TAG,
-                              hot=hot)
+            nxt = logits.argmax(-1) if uniforms is None else \
+                sample_rows_drawn(logits, temps, top_ks, top_ps, uniforms[i])
             out[:, i] = torch.where(live, nxt, 0)
             gen = gen + live.to(gen.dtype)
             hit_eos = live & (eos_ids >= 0) & (nxt == eos_ids)

@@ -778,3 +778,80 @@ def test_burst_aborts_a_row_whose_logits_go_nonfinite(models, monkeypatch):
     eng.run(max_steps=20)
     assert len(eng.outputs()[rids[0]].token_ids) == 8
     assert eng.pool.check_invariants()
+
+
+def _per_row_sample(logits, temps, top_ks, top_ps, base_seed, seeds,
+                    positions, tag):
+    """Each sampling row alone: its generator's uniforms, the Gumbel-max
+    of its masked log-probabilities; greedy rows the argmax."""
+    tok = logits.argmax(-1)
+    safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
+    logp = torch.log_softmax(
+        tgen._masked_logits(logits, safe_t, top_ks, top_ps), -1)
+    for i in range(len(temps)):
+        if temps[i] > 0:
+            g = torch.Generator().manual_seed(tgen.stream_seed(
+                base_seed, seeds[i], positions[i], tag))
+            u = torch.rand(logits.shape[-1], generator=g)
+            tok[i] = (logp[i] - torch.log(-torch.log(
+                u.clamp_min(1e-20)))).argmax()
+    return tok
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_drawn_sampler_matches_sample_rows(seed):
+    """The burst's sampler with its uniforms drawn ahead of the graph
+    (``draw_uniforms`` + ``sample_rows_drawn``) picks the same tokens as
+    ``sample_rows`` and as each row sampled alone, for hot and greedy
+    rows, at several request seeds and generation positions."""
+    rng = np.random.RandomState(seed)
+    R, V = 6, 50
+    logits = torch.from_numpy(rng.randn(R, V).astype(np.float32))
+    temps = torch.tensor([0.0, 0.7, 1.3, 0.0, 0.9, 0.5])
+    top_ks = torch.tensor([0, 10, 0, 0, 3, 0], dtype=torch.int32)
+    top_ps = torch.tensor([1.0, 1.0, 0.8, 1.0, 1.0, 0.95])
+    hot = [i for i in range(R) if temps[i] > 0]
+    for pos0 in (0, 7, 31):
+        seeds = rng.randint(0, 2 ** 31, R).tolist()
+        pos = [pos0 + i for i in range(R)]
+        want = tgen.sample_rows(logits, temps, top_ks, top_ps, seed, seeds,
+                                pos, tsd.FINAL_TAG)
+        u = torch.full((R, V), 0.5)
+        tgen.draw_uniforms(u, seed, seeds, pos, tsd.FINAL_TAG, hot)
+        got = tgen.sample_rows_drawn(logits, temps, top_ks, top_ps, u)
+        assert torch.equal(got, want)
+        assert torch.equal(got, _per_row_sample(
+            logits, temps, top_ks, top_ps, seed, seeds, pos, tsd.FINAL_TAG))
+        assert torch.equal(got[[0, 3]], logits[[0, 3]].argmax(-1))
+
+
+@pytest.mark.parametrize("trace", ["mixed", "starved_pool", "prefix_fork"])
+def test_int8_pool_steps_keyed_by_append_bound_match_jax(models, trace):
+    """An int8 pool's ragged step is keyed by its append plan's bound
+    (the most pages a row appends into): one key per bound the trace
+    needs, decode-only steps at 1. Greedy tokens and plans equal the
+    reference's; after the run the pages are within 1 int8 step and the
+    scales within 1e-6 relative."""
+    jm, tm = models
+    arrivals, kw = _traces()[trace]
+    kw = dict(kw, kv_cache_dtype="int8")
+    jeng, teng = JaxEngine(jm, **kw), pt.LLMEngine(tm, device="cpu", **kw)
+    (jr, jtok, jplans, _, _) = _drive(jeng, arrivals)
+    (tr, ttok, tplans, _, _) = _drive(teng, arrivals)
+    assert tr == jr and ttok == jtok and tplans == jplans
+    keys = teng.graphs.keys
+    ps, chunk = teng.page_size, teng.chunk_size
+    assert all(k[0] == "ragged" and 1 <= k[1] <= -(-chunk // ps) + 1
+               for k in keys)
+    assert ("ragged", 1, False) in keys and len(keys) >= 2
+    assert teng.graphs.calls["eager"] == sum(p[0] is not None
+                                             for p in tplans)
+    for (jK, jV), (tK, tV) in zip(jeng.pool.kv, teng.pool.kv):
+        for j, t in ((jK, tK), (jV, tV)):
+            diff = np.abs(np.asarray(j).astype(np.int32)
+                          - t.numpy().astype(np.int32))
+            assert diff.max() <= 1
+    for jpair, tpair in zip(jeng.pool.kv_scales, teng.pool.kv_scales):
+        for j, t in zip(jpair, tpair):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6,
+                                       atol=0)
